@@ -1,0 +1,108 @@
+"""Where one 128-query batch of the PyTorch port spends its time, on a card.
+
+    python3 scripts/profile_torch_batch.py [--docs N] [--out DIR]
+
+Indexes bench.py's corpus (1M docs by default) with infidex_tpu_torch on
+CUDA, warms up with two batches, then serves one batch under
+torch.profiler (CPU + CUDA activity: device kernel time, kernel count,
+idle share = 1 - device time / wall) and two more under cProfile (host
+time by function, pipeline threads included). Prints a summary and
+writes the full tables to DIR/profile_torch.txt and DIR/profile_host.txt.
+"""
+
+import argparse
+import cProfile
+import io
+import os
+import pstats
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+BATCH = 128
+#: functions whose cProfile rows the summary prints
+WATCH = ("_dispatch_chunk", "_coverage_block", "_dispatch_group",
+         "_collect_group", "_device_collect", "stage1_scatter_lanes",
+         "_assemble_prior")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--docs", type=int, default=1_000_000)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bench
+    import infidex_tpu_torch as it
+    from infidex_tpu_torch import runtime
+    from infidex_tpu_torch.ops import _kernels
+
+    runtime.set_device("cuda")
+    _kernels.build()
+    os.makedirs(args.out, exist_ok=True)
+    titles = bench.make_corpus(args.docs)
+    queries = bench.make_queries(titles, 5 * BATCH)
+    t0 = time.perf_counter()
+    eng = it.SearchEngine.create_default()
+    eng.index_documents([it.Document(i, t) for i, t in enumerate(titles)])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"{args.docs} docs indexed in {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+    batches = [[it.Query(q, 10) for q in queries[i:i + BATCH]]
+               for i in range(0, len(queries), BATCH)]
+
+    def serve(b):
+        t = time.perf_counter()
+        eng.search_batch(b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    print("warm-up walls ms", [round(serve(b) * 1e3, 1) for b in batches[:2]],
+          flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = serve(batches[2])
+    ka = prof.key_averages()
+    on_card = [e for e in ka if str(e.device_type).endswith("CUDA")]
+    dev_s = sum(e.self_device_time_total for e in on_card) / 1e6
+    n_kernels = sum(e.count for e in on_card)
+    print(f"[profiler] batch wall {wall * 1e3:.1f} ms; device kernel time "
+          f"{dev_s * 1e3:.1f} ms in {n_kernels} kernels; idle share "
+          f"{1 - dev_s / wall:.4f}", flush=True)
+    with open(os.path.join(args.out, "profile_torch.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+        f.write("\n\n")
+        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
+
+    pr = cProfile.Profile()
+    t = time.perf_counter()
+    pr.enable()
+    for b in batches[3:5]:
+        eng.search_batch(b)
+    torch.cuda.synchronize()
+    pr.disable()
+    wall2 = time.perf_counter() - t
+    s = io.StringIO()
+    st = pstats.Stats(pr, stream=s)
+    st.sort_stats("cumulative").print_stats(60)
+    st.sort_stats("tottime").print_stats(40)
+    with open(os.path.join(args.out, "profile_host.txt"), "w") as f:
+        f.write(f"two batches, wall {wall2:.3f} s\n{s.getvalue()}")
+    print(f"[cprofile] two batches in {wall2 * 1e3:.1f} ms wall", flush=True)
+    for (path, line, name), v in sorted(st.stats.items()):
+        if name in WATCH:
+            print(f"  {name} ({os.path.basename(path)}:{line}): calls {v[1]}, "
+                  f"cum {v[3] * 1e3:.1f} ms, self {v[2] * 1e3:.1f} ms")
+
+
+if __name__ == "__main__":
+    main()
