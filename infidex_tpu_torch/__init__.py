@@ -1,8 +1,9 @@
 """infidex_tpu_torch — the PyTorch/CUDA port of infidex_tpu.
 
 Package-path overlay: this package owns only the modules that touch the
-device (``runtime``, ``convert``, ``index/device.py``, ``ops/*``,
-``scoring/pipeline.py`` and the CUDA sources under ``csrc/``). Its
+device (``runtime``, ``convert``, ``index/device.py``,
+``index/mmap_serving.py``, ``ops/*``, ``scoring/pipeline.py`` and the CUDA
+sources under ``csrc/``). Its
 ``__path__`` (and that of each owned subpackage) ends with the matching
 directory of ``infidex_tpu``, so every other module — engine, vector
 model, tokenization, coverage oracle, fusion, filters — is the

@@ -19,6 +19,7 @@ from . import runtime
 from .index.builder import BuiltIndex
 from .index.device import DeviceIndex
 from .ops.coverage_kernel import CoverageTables, _upload
+from .ops.fuzzy import NGramSignatureIndex, pack_signatures
 
 
 def device_index_from_reference(ref_index, built: BuiltIndex = None,
@@ -37,9 +38,11 @@ def device_index_from_reference(ref_index, built: BuiltIndex = None,
 
 
 def coverage_tables_from_reference(ref_tables, device=None) -> CoverageTables:
-    """The port's CoverageTables with every array field of a reference
-    ``CoverageTables`` (device arrays uploaded to ``device``, host
-    mirrors copied)."""
+    """The port's CoverageTables with every field of a reference
+    ``CoverageTables``: device arrays uploaded to ``device`` (uint16
+    ``text_chars`` widened to the port's int32), host mirrors copied, and
+    the append headroom state (``n_docs``, ``n_words``) carried, so that
+    both packages append to the same rows."""
     dev = torch.device(device) if device is not None else runtime.device()
     out = {}
     for f in dataclasses.fields(CoverageTables):
@@ -55,3 +58,17 @@ def coverage_tables_from_reference(ref_tables, device=None) -> CoverageTables:
             a = a.astype(np.int32)
         out[f.name] = _upload(a, dev)
     return CoverageTables(**out)
+
+
+def signature_index_from_reference(ref_sig,
+                                   device=None) -> NGramSignatureIndex:
+    """The port's NGramSignatureIndex over a reference
+    ``NGramSignatureIndex``'s state: its int8 [128, V_pad] signature
+    matrix packed into the port's int32 [V_pad, 4] words, ``vpop``,
+    ``vlen``, ``elig``, the logical size ``v``, ``min_len`` and the
+    terms (headroom slots included)."""
+    sig_t = np.asarray(ref_sig._sig_t)
+    return NGramSignatureIndex.from_state(
+        pack_signatures(sig_t.T), np.asarray(ref_sig._vpop),
+        np.asarray(ref_sig._vlen), np.asarray(ref_sig._elig), ref_sig.v,
+        ref_sig._terms, min_len=ref_sig.min_len, device=device)

@@ -468,19 +468,23 @@ class DeviceIndex:
                                          tq[:n], self.n_pad, self.device)
 
     def _dispatch_group(self, queries, top_k, total_docs, stop_term_limit,
-                        live_override) -> dict:
-        """Stage-1 for one lane-capped group of queries, enqueued."""
+                        live_override, csr=None) -> dict:
+        """Stage-1 for one lane-capped group of queries, enqueued.
+        ``csr`` = (built, postings_docs, cfac) scores the queries' term
+        ids over another CSR on this index's doc axis (mmap streaming's
+        per-group mini CSR); by default this index's own."""
+        built, postings_docs, cfac = csr or (self.built, self.postings_docs,
+                                             self.cfac)
         dev = self.device
         f32 = torch.float32
         n_q = len(queries)
         n_pad = self.n_pad
-        prep = prepare_batch_arrays(self.built, queries)
+        prep = prepare_batch_arrays(built, queries)
         fz_starts, fz_lens, fz_group, grp_query, _, n_grp = prep[6:]
         chunks = self._chunks(queries, prep)
         scores = torch.zeros(n_q * n_pad, dtype=f32, device=dev)
         cnt = torch.zeros(n_q * n_pad, dtype=f32, device=dev)
-        lanes.scatter_lanes(scores, cnt, chunks, self.postings_docs,
-                            self.cfac)
+        lanes.scatter_lanes(scores, cnt, chunks, postings_docs, cfac)
         scores = scores.view(n_q, n_pad)
         cnt = cnt.view(n_q, n_pad)
 
@@ -492,7 +496,7 @@ class DeviceIndex:
             sl = torch.tensor(float(np.float32(stop_term_limit)), dtype=f32,
                               device=dev)
             scores, cnt, fz_any = _fuzzy_block(
-                scores, cnt, self.postings_docs, self.doc_lengths,
+                scores, cnt, postings_docs, self.doc_lengths,
                 fz_starts, fz_lens, fz_group, grp_query, td, sl,
                 torch.clamp_min(self.avgdl, 1e-9), n_q)
 

@@ -1,11 +1,12 @@
 """Loader and wrappers of the port's hand-written CUDA kernels.
 
-The sources under ``infidex_tpu_torch/csrc`` are compiled on first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, under ``build/infidex_tpu_torch/`` at the repository root
-(keyed by a hash of the source, so an edited kernel rebuilds), and bound
-with ``ctypes``. Nothing is built or imported from CUDA when this module
-is imported: the CPU tests import it on machines without ``nvcc``.
+Every ``.cu`` source under ``infidex_tpu_torch/csrc`` is compiled on
+first use by one ``nvcc`` call for ``sm_90a`` into ONE shared library
+with a plain C interface, under ``build/infidex_tpu_torch/`` at the
+repository root (named by a hash of all the sources and the flags, so an
+edit to any of them rebuilds), and bound with ``ctypes``. Nothing is
+built or imported from CUDA when this module is imported: the CPU tests
+import it on machines without ``nvcc``.
 
 Each wrapper checks device, dtype, shape and contiguity, launches on the
 current PyTorch stream, raises if the launch fails, and counts its
@@ -25,13 +26,13 @@ import time
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "stage1_lanes.cu")
+_CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "infidex_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 #: launches per kernel since the last reset (one per kernel launch)
-launch_counts = {"stage1_scatter_lanes": 0}
+launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -53,10 +54,19 @@ def _nvcc() -> str:
     return path
 
 
+def _sources() -> list:
+    """The CUDA sources of the library, in a fixed order."""
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith(".cu"))
+
+
 def library_path() -> str:
-    with open(_SRC, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libinfidex_kernels.{tag.hexdigest()[:12]}.so")
+    tag = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            tag.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR,
+                        f"libinfidex_kernels.{tag.hexdigest()[:12]}.so")
 
 
 def build(verbose: bool = False) -> float:
@@ -71,7 +81,7 @@ def build(verbose: bool = False) -> float:
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             res = subprocess.run(cmd, capture_output=True, text=True)
@@ -85,6 +95,8 @@ def build(verbose: bool = False) -> float:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.stage1_scatter_lanes.argtypes = [p, p, p, p, p, i, p, p, p, p, p]
         lib.stage1_scatter_lanes.restype = i
+        lib.fuzzy_match.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p]
+        lib.fuzzy_match.restype = i
         lib.stage1_error_string.argtypes = [i]
         lib.stage1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -136,3 +148,45 @@ def stage1_scatter_lanes(scores, cnt, off, vstart, vend, idf, base,
         raise RuntimeError("stage1_scatter_lanes launch failed: "
                            + _lib.stage1_error_string(rc).decode())
     launch_counts["stage1_scatter_lanes"] += 1
+
+
+def fuzzy_match(sig, vpop, vlen, elig, qsig, qpop, qlen, cap: int):
+    """``csrc/fuzzy_match.cu`` over T token rows and a vocabulary of V ids
+    (see ``ops/fuzzy.py``): returns int32 [T, cap], each row the lowest
+    ``cap`` passing ids ascending, padded with V. ``sig``/``qsig`` are
+    int32 [V, 4] / [T, 4] packed signatures; ``vpop``, ``vlen``, ``qpop``,
+    ``qlen`` int32; ``elig`` bool."""
+    dev = sig.device
+    if dev.type != "cuda":
+        raise ValueError("fuzzy_match: CUDA tensors required")
+    i32 = torch.int32
+    for name, t, dt in (("vpop", vpop, i32), ("vlen", vlen, i32),
+                        ("elig", elig, torch.bool), ("qpop", qpop, i32),
+                        ("qlen", qlen, i32)):
+        _check(name, t, dt, dev)
+    for name, t in (("sig", sig), ("qsig", qsig)):
+        if t.device != dev or t.dtype != i32:
+            raise TypeError(f"{name}: expected int32 on {dev}")
+        if t.dim() != 2 or t.shape[1] != 4 or not t.is_contiguous():
+            raise ValueError(f"{name}: must be a contiguous [n, 4] tensor")
+    v_pad, n_rows = sig.shape[0], qsig.shape[0]
+    if not (vpop.numel() == vlen.numel() == elig.numel() == v_pad
+            and qpop.numel() == qlen.numel() == n_rows):
+        raise ValueError("fuzzy_match: mismatched sizes")
+    if not 0 < cap <= v_pad:
+        raise ValueError(f"fuzzy_match: cap {cap} outside (0, {v_pad}]")
+    out = torch.empty((n_rows, cap), dtype=i32, device=dev)
+    if n_rows == 0:
+        return out
+    build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.fuzzy_match(
+            sig.data_ptr(), vpop.data_ptr(), vlen.data_ptr(),
+            elig.data_ptr(), qsig.data_ptr(), qpop.data_ptr(),
+            qlen.data_ptr(), n_rows, v_pad, cap, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("fuzzy_match launch failed: "
+                           + _lib.stage1_error_string(rc).decode())
+    launch_counts["fuzzy_match"] += 1
+    return out

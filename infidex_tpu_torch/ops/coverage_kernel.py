@@ -184,11 +184,105 @@ class CoverageTables:
         return t
 
     def append_texts(self, doc_texts, delimiters, start_id: int) -> bool:
-        """In-place append of new docs' rows: not ported yet (the
-        incremental-append slice). Raises instead of rebuilding."""
-        raise NotImplementedError(
-            "CoverageTables.append_texts is not ported to infidex_tpu_torch "
-            "yet (incremental append)")
+        """Append ``doc_texts`` as docs ``start_id..`` by writing their
+        rows into the existing tables in place (``_append_update``) and
+        the host mirrors — O(delta) instead of re-encoding the corpus at
+        every incremental finalize. New words get fresh codes past
+        ``n_words``; duplicate words across base and delta get duplicate
+        rows, which is harmless (the program compares characters through
+        gathers, never code identity). Returns False when an axis bucket
+        would overflow or a new text needs a larger LCS bucket: the
+        caller then rebuilds, which re-buckets."""
+        k = len(doc_texts)
+        if k == 0:
+            return True
+        if self.n_docs < 0 or self.n_words < 0 or start_id != self.n_docs:
+            return False
+        if self.text_chars is None or self.lcs_ok_host is None:
+            return False
+        (word_chars, word_chars_rev, word_lens, doc_tokens, doc_offsets,
+         doc_count, doc_adj, doc_text_len, overflow,
+         max_wlen) = _encode_doc_arrays(doc_texts, delimiters)
+        w_new = int(word_chars.shape[0])
+        if not word_lens.any():
+            w_new = 0  # no real words (the encoder pads an empty vocab row)
+        n_pad = int(self.overflow.shape[0])
+        v_pad = int(self.word_lens.shape[0])
+        # local word codes -> global (past the current vocabulary)
+        doc_tokens = np.where(doc_tokens >= 0,
+                              doc_tokens + np.int32(self.n_words),
+                              np.int32(-1))
+        # text-LCS rows for the new docs (utf-16 code units, stored int32)
+        t_cap = int(self.text_chars.shape[1])
+        encs = [t.encode("utf-16-le") for t in doc_texts]
+        if any(t_cap < (len(b) >> 1) <= T_LCS_BUCKETS[-1] for b in encs):
+            return False  # a full rebuild picks a bigger text bucket
+        tc_rows = np.zeros((k, t_cap), np.int32)
+        lok_rows = np.zeros(k, bool)
+        for i, b in enumerate(encs):
+            m = len(b) >> 1
+            if 0 < m <= t_cap:
+                tc_rows[i, :m] = np.frombuffer(b, "<u2")
+                lok_rows[i] = True
+        lok_rows &= ~((tc_rows >= 0xD800) & (tc_rows < 0xE000)).any(axis=1)
+
+        k_pad = _append_bucket(k)
+        w_pad = _append_bucket(w_new) if w_new else 0
+        if start_id + k_pad > n_pad or self.n_words + w_pad > v_pad:
+            return False
+
+        def pad_rows(a, rows, fill=0):
+            out = np.full((rows,) + a.shape[1:], fill, dtype=a.dtype)
+            out[: a.shape[0]] = a
+            return out
+
+        if w_pad:
+            _append_update(self.n_words, (
+                (self.word_chars, pad_rows(word_chars, w_pad)),
+                (self.word_chars_rev, pad_rows(word_chars_rev, w_pad)),
+                (self.word_lens, pad_rows(word_lens, w_pad))))
+        _append_update(start_id, (
+            (self.doc_tokens, pad_rows(doc_tokens, k_pad, fill=-1)),
+            (self.doc_tok_offsets, pad_rows(doc_offsets, k_pad)),
+            (self.doc_tok_count, pad_rows(doc_count, k_pad)),
+            (self.doc_adj_ws, pad_rows(doc_adj, k_pad)),
+            (self.doc_text_len, pad_rows(doc_text_len, k_pad)),
+            (self.text_chars, pad_rows(tc_rows, k_pad)),
+            (self.lcs_ok, pad_rows(lok_rows, k_pad))))
+        # host mirrors (exact rows, not the padded update)
+        self.overflow[start_id:start_id + k] = overflow
+        self.tok_count_host[start_id:start_id + k] = doc_count
+        self.max_wlen_host[start_id:start_id + k] = max_wlen
+        self.lcs_ok_host[start_id:start_id + k] = lok_rows
+        self.n_docs = start_id + k
+        self.n_words += w_new
+        return True
+
+
+#: row-count buckets of incremental appends (the reference's): an update
+#: writes its rows padded to one of these, so when a table overflows is
+#: the reference's decision exactly
+_APPEND_BUCKETS = (16, 64, 256, 1024, 4096)
+
+
+def _append_bucket(n: int) -> int:
+    for b in _APPEND_BUCKETS:
+        if n <= b:
+            return b
+    return n  # very large appends: exact size
+
+
+def _append_update(start: int, blocks) -> None:
+    """In-place row updates of device tables: each (table, rows) pair
+    copies the host rows into ``table[start:start + len(rows)]``. Pad rows
+    of an update re-write pad rows with the content they already hold.
+    The copies are blocking (pageable numpy source) and run on the
+    current stream, after every kernel already queued on it; the caller
+    holds the engine's write lock, so no reader is between its dispatch
+    and its readback."""
+    for table, rows in blocks:
+        src = torch.from_numpy(np.ascontiguousarray(rows))
+        table[start:start + src.shape[0]].copy_(src.to(table.dtype))
 
 
 def _encode_doc_arrays(doc_texts, delimiters):
@@ -345,6 +439,14 @@ def _rdiv(a: float, t: torch.Tensor) -> torch.Tensor:
     """``a / t`` as ONE f32 division (PyTorch's scalar / tensor is a
     reciprocal times the scalar, two roundings)."""
     return torch.full_like(t, a) / t
+
+
+def _div(t: torch.Tensor, a: float) -> torch.Tensor:
+    """``t / a`` as ONE f32 division on every device: for a CUDA tensor
+    divided by a Python scalar, PyTorch multiplies by the scalar's
+    reciprocal (two roundings; the CPU divides), so the divisor is given
+    as a tensor."""
+    return t / torch.full_like(t, a)
 
 
 def _iota(n: int, dev) -> torch.Tensor:
@@ -1259,7 +1361,7 @@ def _fusion_score_impl(C, q_count, query_len, text_len,
         has_partial & (n >= 2) & boost_bit, 8, 0)
 
     avg_ci = torch.where(tc > 0, sum_ci / tc_f, 0.0)
-    lexical_sim = sig["single_sim"].to(f32) / 255.0
+    lexical_sim = _div(sig["single_sim"].to(f32), 255.0)
     sem_single = (avg_ci + lexical_sim) / 2.0
 
     use_idf_cov = has_partial & (unmatched_terms == 1) & can_boost & \
@@ -1273,7 +1375,7 @@ def _fusion_score_impl(C, q_count, query_len, text_len,
         torch.clamp_max(sem_multi + INTENT_BONUS_PER_SIGNAL *
                         signals.to(f32), 1.0),
         sem_multi)
-    t_density = sig["trailing_density"].to(f32) / 255.0
+    t_density = _div(sig["trailing_density"].to(f32), 255.0)
     sem_multi = torch.where(
         (tc >= 2) & (t_density > 0.0),
         sem_multi + (1.0 - sem_multi) * t_density, sem_multi)

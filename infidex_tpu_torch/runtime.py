@@ -46,3 +46,24 @@ def reference_dir(*parts: str) -> str:
     subpackages), which the port's packages overlay."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     return os.path.join(root, "infidex_tpu", *parts)
+
+
+def load_reference_module(package: str, *parts: str):
+    """The reference's module file ``infidex_tpu/<parts>`` loaded once as
+    ``<package>._reference_<stem>`` with ``package`` (a port package) as
+    its ``__package__``, so its relative imports reach the port's
+    modules. A port module that overrides a few of a reference module's
+    methods subclasses what this returns."""
+    import importlib.util
+    import sys
+
+    name = f"{package}._reference_{os.path.splitext(parts[-1])[0]}"
+    mod = sys.modules.get(name)
+    if mod is not None:
+        return mod
+    spec = importlib.util.spec_from_file_location(name, reference_dir(*parts))
+    mod = importlib.util.module_from_spec(spec)
+    mod.__package__ = package
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod

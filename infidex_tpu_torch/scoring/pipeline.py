@@ -12,31 +12,14 @@ methods. Every other name of the reference module is re-exported as is.
 
 from __future__ import annotations
 
-import importlib.util
-import sys
 import time
 from typing import List
 
 import numpy as np
 
-from ..runtime import reference_dir
+from ..runtime import load_reference_module
 
-
-def _load_reference():
-    name = f"{__package__}._reference_pipeline"
-    mod = sys.modules.get(name)
-    if mod is not None:
-        return mod
-    spec = importlib.util.spec_from_file_location(
-        name, reference_dir("scoring", "pipeline.py"))
-    mod = importlib.util.module_from_spec(spec)
-    mod.__package__ = __package__
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
-
-
-_ref = _load_reference()
+_ref = load_reference_module(__package__, "scoring", "pipeline.py")
 globals().update({k: v for k, v in vars(_ref).items()
                   if not k.startswith("__")})
 

@@ -184,8 +184,13 @@ def test_tables_match_reference_tables():
                  "lcs_ok_host"):
         assert np.array_equal(getattr(pt, name), getattr(jt, name)), name
     assert (pt.n_docs, pt.n_words) == (jt.n_docs, jt.n_words)
-    with pytest.raises(NotImplementedError):
-        pt.append_texts(["new doc"], {" "}, pt.n_docs)
+    # an append writes the reference's rows (tests/test_torch_append.py
+    # holds every table after several appends)
+    start = jt.n_docs
+    assert jt.append_texts(["new doc"], {" "}, start)
+    assert pt.append_texts(["new doc"], {" "}, start)
+    assert np.array_equal(pt.doc_tokens.numpy(), np.asarray(jt.doc_tokens))
+    assert (pt.n_docs, pt.n_words) == (jt.n_docs, jt.n_words)
 
 
 def test_device_lcs_matches_host_lcs():
