@@ -12,8 +12,9 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      build seconds and the resident device bytes.
   2. Kernel phase: the Stage-1 lane kernel against its plain PyTorch
      version on the chunk table of a real 128-query batch of that index.
-     Bit equality and two identical kernel runs are required; both times
-     come from CUDA events.
+     Bit equality, two identical kernel runs and one launch per group are
+     required; both times come from CUDA events, beside the bound and one
+     ``index_add_`` of the pre-expanded lanes ("scatter only").
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
      indexed and served once on the CPU and once on the card; ids and
      scores must be identical.
@@ -48,10 +49,17 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      the resident Stage 1 bit for bit; the batch is served by device
      streaming (ids counted against phase 4's) and a single query on the
      host route.
+ 10. Facets: 100,000 fielded docs (title; genre and year facetable) built
+     with the port's classes, a 128-query batch with ``enable_facets``
+     under ``INFIDEX_TPU_DEVICE_FACETS=1``: every device count matrix must
+     equal ``facet_counts_batch_host`` on the same id lists, and the
+     facets those of the host route.
 
-Each phase prints its seconds. The line before the last is one JSON
-object describing each kernel; the last line is ``{"ok": true,
-"device": {...}}``.
+At the end no loaded module and no native library may come from the JAX
+package's directory. Each phase prints its seconds. The line before the
+last is one JSON object describing each kernel (with its bound and
+launches per batch); the line before it the card's name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +87,10 @@ WRITES, WRITES_PER_FINALIZE = 10_000, 2_000
 #: prefers writers; a reader batch holds the writer for its whole length)
 READER_BATCHES_MAX = 12
 PARITY_APPENDS, PARITY_FINALIZES = 200, 4
+#: the fielded corpus of the facets phase
+FACET_DOCS = 100_000
+GENRES = ["Drama", "Comedy", "Action", "Horror", "Documentary", "Crime",
+          "Animation", "Romance", "SciFi", "Thriller", "Western", "Musical"]
 
 
 class SmokeFailure(RuntimeError):
@@ -115,6 +127,20 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+#: the card's published peaks (NVIDIA H100 SXM data sheet, dense, at its
+#: 700 W limit): HBM bytes/s, f32 outside the tensor cores, int8 tensor ops
+HBM_BYTES_S = 3.35e12
+F32_PEAK = 67e12
+INT8_PEAK = 1979e12
+
+
+def bound_ms(nbytes: float, ops: float, peak: float):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def build_engine(it, titles):
@@ -176,27 +202,31 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
     preps = [m.prepare_stage1(q) for q in queries[:BATCH]]
     lo, hi = split_batch_by_lanes(dev_index.built, preps)[0]
     chunks = dev_index.stage1_chunks(preps[lo:hi])
+    ranked = chunks.ranked()
     n_cells = (hi - lo) * dev_index.n_pad
     n_lanes = int((chunks.vend - chunks.vstart).sum())
+    n_ranks = len(ranked.bounds) - 1
     log(f"[kernel] group of {hi - lo} queries: {chunks.off.numel()} chunks "
-        f"in {len(chunks.bounds) - 1} rank passes, {n_lanes} lanes, "
-        f"score matrix {hi - lo} x {dev_index.n_pad}")
+        f"in {n_ranks} term ranks, {n_lanes} lanes, score matrix "
+        f"{hi - lo} x {dev_index.n_pad}")
     check(n_lanes > 0, "kernel phase: the batch expands no lanes")
     docs, cfac = dev_index.postings_docs, dev_index.cfac
 
-    def run(fn):
+    def run(fn, table):
         s = torch.zeros(n_cells, dtype=torch.float32, device=docs.device)
         c = torch.zeros(n_cells, dtype=torch.float32, device=docs.device)
-        fn(s, c, chunks, docs, cfac)
+        fn(s, c, table, docs, cfac)
         return s, c
 
-    plain = run(lanes.scatter_lanes_plain)
+    plain = run(lanes.scatter_lanes_plain, ranked)
     n0 = _kernels.launch_counts["stage1_scatter_lanes"]
-    k1 = run(lanes.scatter_lanes)
-    k2 = run(lanes.scatter_lanes)
+    k1 = run(lanes.scatter_lanes, chunks)
+    k2 = run(lanes.scatter_lanes, chunks)
     torch.cuda.synchronize()
-    check(_kernels.launch_counts["stage1_scatter_lanes"] - n0
-          == 2 * (len(chunks.bounds) - 1), "kernel phase: launch count")
+    check(_kernels.launch_counts["stage1_scatter_lanes"] - n0 == 2,
+          "kernel phase: not one launch per group")
+    log(f"[kernel] one launch per group ({n_ranks} term ranks; the "
+        f"earlier design launched once per rank)")
 
     def bits(t):
         return t.view(torch.int32)
@@ -209,25 +239,43 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
           "kernel phase: two kernel runs differ")
     err = max(float((k1[0] - plain[0]).abs().max()),
               float((k1[1] - plain[1]).abs().max()))
-    check(int((plain[1] > 0).sum()) > 0, "kernel phase: nothing scattered")
+    cells = int((plain[1] > 0).sum())
+    check(cells > 0, "kernel phase: nothing scattered")
 
     # Timing in turns (plain, kernel, kernel, plain) on one set of
     # accumulators; the scatter is in place, so values only grow.
-    s, c = run(lanes.scatter_lanes_plain)
+    s, c = run(lanes.scatter_lanes_plain, ranked)
     times = {"plain": [], "cuda": []}
     for route in ("plain", "cuda", "cuda", "plain"):
-        fn = (lanes.scatter_lanes_plain if route == "plain"
-              else lanes.scatter_lanes)
+        fn, table = ((lanes.scatter_lanes_plain, ranked) if route == "plain"
+                     else (lanes.scatter_lanes, chunks))
         times[route].append(cuda_ms(
-            torch, lambda: fn(s, c, chunks, docs, cfac), reps=10))
+            torch, lambda: fn(s, c, table, docs, cfac), reps=10))
     ms = sum(times["cuda"]) / 2
     plain_ms = sum(times["plain"]) / 2
-    gbps = n_lanes * 24 / (ms * 1e6)
+    # yardstick: one index_add_ of the pre-expanded lanes into the scores
+    # (float atomics, cnt not updated): the scatter alone. Parked lanes
+    # (outside a chunk's window) are dropped first: they all hit one cell
+    keys, contrib = lanes.expand_lanes(
+        chunks.off, chunks.vstart, chunks.vend, chunks.idf, chunks.base,
+        docs, cfac, n_cells - 1)
+    real = keys != n_cells - 1
+    keys, contrib = keys[real].long(), contrib[real]
+    check(keys.numel() == n_lanes, "kernel phase: expanded lane count")
+    scatter_ms = cuda_ms(torch, lambda: s.index_add_(0, keys, contrib),
+                         reps=10)
+    # bound: each lane's doc and factor read once (8 B), each touched score
+    # and count cell read once and written once (16 B)
+    nbytes = 8 * n_lanes + 16 * cells
+    bound = bound_ms(nbytes, 3 * n_lanes, F32_PEAK)
     log(f"[kernel] bit-equal to the plain version, deterministic across "
         f"runs; kernel {ms:.4f} ms ({times['cuda']}), plain "
-        f"{plain_ms:.4f} ms ({times['plain']}); {gbps:.1f} GB/s at 24 B "
-        f"per lane (8 B read + 2 x 8 B read-modify-write)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, lanes=n_lanes)
+        f"{plain_ms:.4f} ms ({times['plain']}); scatter only "
+        f"(index_add_ of the pre-expanded lanes) {scatter_ms:.4f} ms; "
+        f"bound {bound[0]:.4f} ms by {bound[1]} ({nbytes} B: {n_lanes} "
+        f"lanes x 8 B + {cells} cells x 16 B), {bound[0] / ms:.1%} of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, lanes=n_lanes,
+                bound_ms=bound[0], bound_by=bound[1], scatter_ms=scatter_ms)
 
 
 def cross_device_phase(it, runtime, bench):
@@ -444,10 +492,18 @@ def big_vocab_phase(torch, it, bench, _kernels):
         fn = fuzzy.match_plain if route == "plain" else _kernels.fuzzy_match
         times[route].append(cuda_ms(torch, lambda: fn(*args), reps=10))
     ms, plain_ms = sum(times["cuda"]) / 2, sum(times["plain"]) / 2
+    # bound: the vocabulary (16 + 4 + 4 + 1 B an id) and the token rows
+    # (16 + 4 + 4 B) read once, the [T, cap] ids written once; operations:
+    # the reference's int8 [T,128]x[128,V] product at the int8 peak
+    n_rows, cap = args[4].shape[0], args[7]
+    nbytes = 25 * sig.v_pad + 24 * n_rows + 4 * n_rows * cap
+    bound = bound_ms(nbytes, 2 * n_rows * 128 * sig.v_pad, INT8_PEAK)
     log(f"[vocab] match kernel on {len(tokens)} unknown tokens "
-        f"({args[4].shape[0]} rows, cap {args[7]}, {sig.v_pad} slots, {n_pass} ids out): bit-equal "
-        f"to the plain version, deterministic; kernel {ms:.4f} ms "
-        f"({times['cuda']}), plain {plain_ms:.4f} ms ({times['plain']})")
+        f"({n_rows} rows, cap {cap}, {sig.v_pad} slots, {n_pass} ids "
+        f"out): bit-equal to the plain version, deterministic; kernel "
+        f"{ms:.4f} ms ({times['cuda']}), plain {plain_ms:.4f} ms "
+        f"({times['plain']}); bound {bound[0]:.4f} ms by {bound[1]} "
+        f"({nbytes} B), {bound[0] / ms:.1%} of it")
 
     _kernels.reset_launch_counts()
     walls, results = [], []
@@ -474,7 +530,8 @@ def big_vocab_phase(torch, it, bench, _kernels):
     log(f"[vocab] {found}/{len(results)} queries with hits; 'shawshenk' -> "
         f"doc 0 first")
     return eng, titles, vocab, dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms), counts
+                                    plain_ms=plain_ms, bound_ms=bound[0],
+                                    bound_by=bound[1]), counts
 
 
 def fresh_words(bench, vocab, n: int, seed: int):
@@ -702,6 +759,93 @@ def segments_phase(torch, it, eng, queries, resident, _kernels, root):
     return counts
 
 
+def facets_phase(torch, it, bench):
+    """Batched facets on the card: a fielded corpus built with the port's
+    classes, one batch with ``enable_facets`` under
+    ``INFIDEX_TPU_DEVICE_FACETS=1``; every count matrix the device counter
+    returns must equal ``facet_counts_batch_host`` on the same id lists,
+    and the facets equal those of the host route."""
+    import numpy as np
+
+    from infidex_tpu_torch.ops import facets
+
+    titles = bench.make_corpus(FACET_DOCS)
+    queries = bench.make_queries(titles, BATCH)
+    rng = random.Random(19)
+    docs = []
+    for i, title in enumerate(titles):
+        f = it.DocumentFields()
+        f.add_field("title", title, it.Weight.HIGH)
+        f.add_field("genre", rng.choice(GENRES), indexable=False,
+                    filterable=True, facetable=True)
+        f.add_field("year", 1950 + rng.randrange(75), indexable=False,
+                    filterable=True, facetable=True)
+        docs.append(it.Document(i, f))
+    eng = it.SearchEngine.create_default()
+    t0 = time.perf_counter()
+    eng.index_documents(docs)
+    log(f"[facets] {FACET_DOCS} fielded docs (title; genre and year "
+        f"facetable) indexed in {time.perf_counter() - t0:.1f} s")
+
+    seen = []
+    orig = facets.DeviceFacetCounter.counts
+
+    def spy(self, name, codes, n_values, id_lists):
+        out = orig(self, name, codes, n_values, id_lists)
+        seen.append((name, codes, n_values, [np.array(a) for a in id_lists],
+                     out, self._codes_dev[name].device))
+        return out
+
+    def batch(mode):
+        qs = [it.Query(q, 10) for q in queries]
+        for q in qs:
+            q.enable_facets = True
+        os.environ["INFIDEX_TPU_DEVICE_FACETS"] = mode
+        try:
+            t0 = time.perf_counter()
+            res = eng.search_batch(qs)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        finally:
+            del os.environ["INFIDEX_TPU_DEVICE_FACETS"]
+
+    facets.DeviceFacetCounter.counts = spy
+    try:
+        res, wall = batch("1")
+    finally:
+        facets.DeviceFacetCounter.counts = orig
+    check(seen, "facets: the device counter was never used")
+    for name, codes, n_values, id_lists, out, dev in seen:
+        check(dev.type == "cuda", f"facets: {name} codes not on the card")
+        want = facets.facet_counts_batch_host(codes, n_values, id_lists)
+        check(out.shape == want.shape and np.array_equal(out, want),
+              f"facets: {name} counts differ from the host's")
+    host, host_wall = batch("0")
+    check([r.facets for r in res] == [r.facets for r in host],
+          "facets: the device route's facets differ from the host route's")
+    n_ids = sum(a.size for a in seen[0][3])
+    with_facets = sum(bool(r.facets) for r in res)
+    log(f"[facets] {BATCH} queries with enable_facets in {wall * 1e3:.1f} "
+        f"ms wall (device counts; host route {host_wall * 1e3:.1f} ms): "
+        f"{len(seen)} device count matrices ({', '.join(f'{n} {v} values' for n, _, v, *_ in seen)}) "
+        f"over {n_ids} result ids, each equal to facet_counts_batch_host; "
+        f"{with_facets} queries with facets, equal to the host route's")
+
+
+def loaded_from(root: str):
+    """Loaded modules, and native libraries, whose file lies under the
+    JAX package's directory ``root``."""
+    import infidex_tpu_torch.native as native
+
+    bad = sorted(m for m, mod in list(sys.modules.items())
+                 if os.path.abspath(getattr(mod, "__file__", None) or "")
+                 .startswith(root))
+    with open("/proc/self/maps") as maps:
+        libs = {line.split()[-1] for line in maps if ".so" in line}
+    libs.add(os.path.abspath(native._SO))
+    return bad + sorted(f for f in libs if f.startswith(root))
+
+
 T_START = time.perf_counter()
 
 
@@ -775,26 +919,38 @@ def main(argv=None) -> int:
     timed("8 append parity", append_parity_phase, it, runtime, bench)
     seg_counts = timed("9 segments", segments_phase, torch, it, eng,
                        queries, resident, _kernels, root)
+    del eng
+    timed("10 facets", facets_phase, torch, it, bench)
     log(f"[end] kernel launches by path: main {counts}, large vocabulary "
         f"{vocab_counts}, segments {seg_counts}; total "
         f"{time.perf_counter() - T_START:.1f} s")
     check("jax" not in sys.modules and not any(
         m.startswith(("jax.", "jaxlib", "infidex_tpu.")) for m in sys.modules),
         "the port imported jax or the reference package")
+    ref_files = loaded_from(os.path.join(root, "infidex_tpu") + os.sep)
+    check(not ref_files, f"loaded from the JAX package's directory: "
+          f"{ref_files}")
 
+    # the main path served 4 batches (2 search_batch, 2 in search_many);
+    # the large-vocabulary path 2
     print(json.dumps({"kernels": [{
         "name": "stage1_scatter_lanes", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/stage1_lanes.cu",
         "replaces": "infidex_tpu/ops/stage1_lanes.py:184",
         "launches": counts["stage1_scatter_lanes"],
+        "launches_per_batch": counts["stage1_scatter_lanes"] / 4,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}, {
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None,
+        "scatter_only_ms": k["scatter_ms"]}, {
         "name": "fuzzy_match", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/fuzzy_match.cu",
         "replaces": "infidex_tpu/ops/fuzzy.py:59",
         "launches": vocab_counts["fuzzy_match"],
+        "launches_per_batch": vocab_counts["fuzzy_match"] / 2,
         "max_abs_err": fk["max_abs_err"], "ms": fk["ms"],
-        "plain_ms": fk["plain_ms"]}]}), flush=True)
+        "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
+        "bound_by": fk["bound_by"], "library_ms": None}]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

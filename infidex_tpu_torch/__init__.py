@@ -1,47 +1,45 @@
 """infidex_tpu_torch — the PyTorch/CUDA port of infidex_tpu.
 
-Package-path overlay: this package owns only the modules that touch the
-device (``runtime``, ``convert``, ``index/device.py``,
-``index/mmap_serving.py``, ``ops/*``, ``scoring/pipeline.py`` and the CUDA
-sources under ``csrc/``). Its
-``__path__`` (and that of each owned subpackage) ends with the matching
-directory of ``infidex_tpu``, so every other module — engine, vector
-model, tokenization, coverage oracle, fusion, filters — is the
-reference's own file, loaded under this package's name. Its relative
-imports (``from .device import ...``) therefore resolve to the port's
-device modules. The port imports ``torch`` and never ``jax``.
+A package that stands on its own: it imports ``torch``, never ``jax``,
+and nothing of ``infidex_tpu``. The host modules (engine, vector model,
+candidate assembly, tokenization, coverage oracle, fusion, filters,
+persistence, the native C++ library) are copies of the reference's files,
+unchanged except where they would reach a JAX-only feature that is not
+ported yet (they raise ``NotImplementedError`` there, see
+``runtime.not_ported``). The modules that touch the device are the port's
+own: ``runtime``, ``convert``, ``index/device.py``, ``ops/*``, the device
+methods of ``scoring/pipeline.py`` (``_dispatch_chunk``,
+``_device_collect``) and of ``index/mmap_serving.py``
+(``_dispatch_group``, ``search_batch_collect``), and the CUDA sources
+under ``csrc/``.
 
 The device is explicit (``runtime.set_device`` / ``runtime.device``):
 CUDA by default, the CPU only on request.
 """
 
-from .runtime import reference_dir as _reference_dir
-
-__path__.append(_reference_dir())
-
-from .api.fields import DocumentFields, Field, Weight  # noqa: E402
-from .api.filters import (CompositeFilter, DerivedFilter, Filter,  # noqa: E402
+from .api.fields import DocumentFields, Field, Weight
+from .api.filters import (CompositeFilter, DerivedFilter, Filter,
                           FilterBuilder, FilterParseException, InFilter,
                           LiteralFilter, NullFilter, RangeFilter, RegexFilter,
                           StringFilter, StringOperation, TernaryFilter,
                           ValueFilter)
-from .api.query import Boost, BoostStrength, Query, Result  # noqa: E402
-from .core.config import (AutoSegmentationSetup,  # noqa: E402
+from .api.query import Boost, BoostStrength, Query, Result
+from .core.config import (AutoSegmentationSetup,
                           ConfigurationParameters, WordMatcherSetup,
                           get_config, has_config)
-from .core.documents import Document, DocumentCollection  # noqa: E402
-from .coverage.setup import CoverageSetup  # noqa: E402
-from .engine import IndexStatistics, SearchEngine, SearchEngineStatus  # noqa: E402
-from .index.vector_model import ScoreEntry, VectorModel  # noqa: E402
-from .api.process_monitor import ProcessMonitor  # noqa: E402
-from .core.shingle import Shingle, SystemStatus  # noqa: E402
-from .core.topk import TopKHeap  # noqa: E402
-from .filtering.mask import FilterCache, FilterMask  # noqa: E402
-from .index.trie import TrieIndex  # noqa: E402
-from .synonyms import SynonymMap  # noqa: E402
-from .utils.roaring import RoaringBitmap  # noqa: E402
-from .tokenization.normalizer import TextNormalizer  # noqa: E402
-from .tokenization.tokenizer import Tokenizer, TokenizerSetup  # noqa: E402
+from .core.documents import Document, DocumentCollection
+from .coverage.setup import CoverageSetup
+from .engine import IndexStatistics, SearchEngine, SearchEngineStatus
+from .index.vector_model import ScoreEntry, VectorModel
+from .api.process_monitor import ProcessMonitor
+from .core.shingle import Shingle, SystemStatus
+from .core.topk import TopKHeap
+from .filtering.mask import FilterCache, FilterMask
+from .index.trie import TrieIndex
+from .synonyms import SynonymMap
+from .utils.roaring import RoaringBitmap
+from .tokenization.normalizer import TextNormalizer
+from .tokenization.tokenizer import Tokenizer, TokenizerSetup
 
 __version__ = "0.1.0"
 

@@ -5,7 +5,8 @@ function here reads that state as numpy arrays (``np.asarray`` on each
 field — no import of the reference's array library) and builds the port's
 object with the same contents on a chosen device. The parity tests use it
 to feed both packages identical state, whichever builder produced it (the
-C++ bulk indexer or hand-made CSR inputs).
+C++ bulk indexer or hand-made CSR inputs). No reference instance is
+passed through: the port's classes are its own.
 """
 
 from __future__ import annotations
@@ -22,14 +23,36 @@ from .ops.coverage_kernel import CoverageTables, _upload
 from .ops.fuzzy import NGramSignatureIndex, pack_signatures
 
 
+def built_index_from_reference(ref_built) -> BuiltIndex:
+    """The port's BuiltIndex with the fields of a reference ``BuiltIndex``:
+    arrays copied as numpy arrays, the term list and map copied, the
+    champion extension carried as it is (built or not); the build
+    generation is the port's own."""
+    out = {}
+    for f in dataclasses.fields(BuiltIndex):
+        if f.name == "gen":
+            continue
+        v = getattr(ref_built, f.name)
+        if isinstance(v, (list, dict)):
+            v = type(v)(v)
+        elif v is not None and not isinstance(v, (int, float, np.integer,
+                                                  np.floating)):
+            v = np.array(v)
+        out[f.name] = v
+    return BuiltIndex(**out)
+
+
 def device_index_from_reference(ref_index, built: BuiltIndex = None,
                                 device=None) -> DeviceIndex:
     """The port's DeviceIndex over a reference ``DeviceIndex``'s state:
     ``postings_docs``, ``postings_weights``, ``doc_lengths``,
-    ``live_mask`` and ``avgdl`` (``built`` defaults to the reference's
-    host image, whose champion layout the postings follow)."""
+    ``live_mask`` and ``avgdl`` (``built`` defaults to the port's copy of
+    the reference's host image, whose champion layout the postings
+    follow)."""
+    if built is None:
+        built = built_index_from_reference(ref_index.built)
     return DeviceIndex.from_state(
-        built if built is not None else ref_index.built,
+        built,
         np.asarray(ref_index.postings_docs),
         np.asarray(ref_index.postings_weights),
         np.asarray(ref_index.doc_lengths),

@@ -456,16 +456,17 @@ class DeviceIndex:
             out.extend(self._collect_group(h))
         return out
 
-    def stage1_chunks(self, queries) -> lanes.RankedChunks:
+    def stage1_chunks(self, queries) -> lanes.QueryChunks:
         """The lane kernel's input for one lane-capped group of queries:
-        its rank-major chunk table, on this index's device."""
+        its query-major chunk table, on this index's device."""
         return self._chunks(queries, prepare_batch_arrays(self.built, queries))
 
-    def _chunks(self, queries, prep) -> lanes.RankedChunks:
+    def _chunks(self, queries, prep) -> lanes.QueryChunks:
         _, starts, lens, idfs, tq = prep[:5]
         n = sum(len(q[0]) for q in queries)   # pad terms have no lanes
-        return lanes.build_ranked_chunks(starts[:n], lens[:n], idfs[:n],
-                                         tq[:n], self.n_pad, self.device)
+        return lanes.build_query_chunks(starts[:n], lens[:n], idfs[:n],
+                                        tq[:n], len(queries), self.n_pad,
+                                        self.device)
 
     def _dispatch_group(self, queries, top_k, total_docs, stop_term_limit,
                         live_override, csr=None) -> dict:
@@ -514,3 +515,11 @@ class DeviceIndex:
         """Blocking half: read back one dispatched group."""
         scores, ids, lim = (t.cpu().numpy() for t in h["out"])
         return [(scores[b], ids[b], lim[b]) for b in range(h["n_q"])]
+
+    def pool_score_dispatch(self, jobs, top_k: int):
+        """Device pool scoring (``INFIDEX_TPU_POOL_DEVICE=1``) is not
+        ported: raises ``NotImplementedError``."""
+        raise runtime.not_ported(runtime.POOL_SCORING)
+
+    def pool_score_collect(self, handle):
+        raise runtime.not_ported(runtime.POOL_SCORING)

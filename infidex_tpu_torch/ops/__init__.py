@@ -1,7 +1,2 @@
-"""Port overlay of ``infidex_tpu.ops``: the port's own modules here win;
-every other module of the subpackage is the reference's file, loaded
-under this package's name (see ``infidex_tpu_torch/__init__.py``)."""
-
-from ..runtime import reference_dir as _reference_dir
-
-__path__.append(_reference_dir("ops"))
+"""Device modules of the port: plain PyTorch, and the wrappers of the
+hand-written CUDA kernels under ``csrc/`` (``_kernels.py``)."""

@@ -31,6 +31,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "infidex_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+#: vocabulary ids per block of the match kernel's first pass (kTile in
+#: ``csrc/fuzzy_match.cu``); sizes the pass-mask scratch
+FUZZY_TILE = 512
+
 #: launches per kernel since the last reset (one per kernel launch)
 launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0}
 
@@ -93,9 +97,10 @@ def build(verbose: bool = False) -> float:
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stage1_scatter_lanes.argtypes = [p, p, p, p, p, i, p, p, p, p, p]
+        lib.stage1_scatter_lanes.argtypes = [p, p, p, p, p, p, p, i, p, p,
+                                             p, p, p]
         lib.stage1_scatter_lanes.restype = i
-        lib.fuzzy_match.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p]
+        lib.fuzzy_match.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p, p]
         lib.fuzzy_match.restype = i
         lib.stage1_error_string.argtypes = [i]
         lib.stage1_error_string.restype = ctypes.c_char_p
@@ -112,38 +117,42 @@ def _check(name: str, t: torch.Tensor, dtype, dev) -> None:
         raise ValueError(f"{name}: must be a contiguous 1-D tensor")
 
 
-def stage1_scatter_lanes(scores, cnt, off, vstart, vend, idf, base,
-                         lo: int, hi: int, postings_docs, cfac) -> None:
-    """One rank pass of ``csrc/stage1_lanes.cu`` over chunk-table rows
-    ``[lo, hi)`` (see ``ops/stage1_lanes.py``), in place on ``scores`` and
-    ``cnt``. The caller guarantees that no two lanes of the pass share a
-    key and that every key lies inside ``scores``."""
+def stage1_scatter_lanes(scores, cnt, qstart, off, vstart, vend, idf, base,
+                         rank, postings_docs, cfac) -> None:
+    """``csrc/stage1_lanes.cu`` over a query-major chunk table (see
+    ``ops/stage1_lanes.py``: rows ``qstart[q]:qstart[q+1]`` are query
+    ``q``'s, in term-rank order), in place on ``scores`` and ``cnt``: ONE
+    launch, one block per query. The caller guarantees that no two lanes
+    of one term share a key, that different queries' keys differ, and
+    that every key lies inside ``scores``."""
     dev = scores.device
     if dev.type != "cuda":
         raise ValueError("stage1_scatter_lanes: CUDA tensors required")
     i32, f32 = torch.int32, torch.float32
     for name, t, dt in (("scores", scores, f32), ("cnt", cnt, f32),
-                        ("off", off, i32), ("vstart", vstart, i32),
-                        ("vend", vend, i32), ("idf", idf, f32),
-                        ("base", base, i32), ("postings_docs", postings_docs,
-                                              i32), ("cfac", cfac, f32)):
+                        ("qstart", qstart, i32), ("off", off, i32),
+                        ("vstart", vstart, i32), ("vend", vend, i32),
+                        ("idf", idf, f32), ("base", base, i32),
+                        ("rank", rank, i32),
+                        ("postings_docs", postings_docs, i32),
+                        ("cfac", cfac, f32)):
         _check(name, t, dt, dev)
     if cnt.numel() != scores.numel() or cfac.numel() != postings_docs.numel():
         raise ValueError("stage1_scatter_lanes: mismatched sizes")
-    n_rows = off.numel()
     if not (off.numel() == vstart.numel() == vend.numel() == idf.numel()
-            == base.numel()) or not 0 <= lo <= hi <= n_rows:
-        raise ValueError("stage1_scatter_lanes: bad chunk table slice")
-    if hi == lo:
+            == base.numel() == rank.numel()) or qstart.numel() < 1:
+        raise ValueError("stage1_scatter_lanes: bad chunk table")
+    n_q = qstart.numel() - 1
+    if n_q == 0 or off.numel() == 0:
         return
     build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.stage1_scatter_lanes(
-            off.data_ptr() + 4 * lo, vstart.data_ptr() + 4 * lo,
-            vend.data_ptr() + 4 * lo, idf.data_ptr() + 4 * lo,
-            base.data_ptr() + 4 * lo, hi - lo, postings_docs.data_ptr(),
-            cfac.data_ptr(), scores.data_ptr(), cnt.data_ptr(), stream)
+            qstart.data_ptr(), off.data_ptr(), vstart.data_ptr(),
+            vend.data_ptr(), idf.data_ptr(), base.data_ptr(),
+            rank.data_ptr(), n_q, postings_docs.data_ptr(), cfac.data_ptr(),
+            scores.data_ptr(), cnt.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("stage1_scatter_lanes launch failed: "
                            + _lib.stage1_error_string(rc).decode())
@@ -155,7 +164,9 @@ def fuzzy_match(sig, vpop, vlen, elig, qsig, qpop, qlen, cap: int):
     (see ``ops/fuzzy.py``): returns int32 [T, cap], each row the lowest
     ``cap`` passing ids ascending, padded with V. ``sig``/``qsig`` are
     int32 [V, 4] / [T, 4] packed signatures; ``vpop``, ``vlen``, ``qpop``,
-    ``qlen`` int32; ``elig`` bool."""
+    ``qlen`` int32; ``elig`` bool. One call launches the kernel's two
+    passes (the vocabulary-tiled pass mask, then the per-row placement)
+    and counts one launch."""
     dev = sig.device
     if dev.type != "cuda":
         raise ValueError("fuzzy_match: CUDA tensors required")
@@ -179,12 +190,17 @@ def fuzzy_match(sig, vpop, vlen, elig, qsig, qpop, qlen, cap: int):
     if n_rows == 0:
         return out
     build()
+    # scratch: the pass mask, one bit per (row, vocabulary id), in whole
+    # tiles of FUZZY_TILE ids
+    words = -(-v_pad // FUZZY_TILE) * (FUZZY_TILE // 32)
+    mask = torch.empty((n_rows, words), dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib.fuzzy_match(
             sig.data_ptr(), vpop.data_ptr(), vlen.data_ptr(),
             elig.data_ptr(), qsig.data_ptr(), qpop.data_ptr(),
-            qlen.data_ptr(), n_rows, v_pad, cap, out.data_ptr(), stream)
+            qlen.data_ptr(), n_rows, v_pad, cap, words, mask.data_ptr(),
+            out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("fuzzy_match launch failed: "
                            + _lib.stage1_error_string(rc).decode())

@@ -14,17 +14,29 @@ Scatter determinism. The reference adds every lane's contribution into
 the flat score matrix with one scatter-add, which XLA on the CPU runs in
 lane order; lane order is (query, term). Ranking ties (``stable_top_k``,
 fusion tie classes) need bit-equal scores for equal documents, so the
-port reproduces that order exactly instead of using float atomics: the
-chunks are grouped by term RANK (a term's position among its query's
-terms) and each rank is scattered in its own pass, in rank order. Within
-one rank no two lanes share a key — a term's postings are distinct docs
-and different queries own different key ranges — so each pass is a plain
-read-add-write with no atomics, and each score cell receives its terms'
-contributions in exactly the serial order. ``scatter_lanes`` runs one
-pass per rank: the hand-written CUDA kernel (``csrc/stage1_lanes.cu``,
-expansion and scatter fused, so keys and contributions never reach
-device memory) for CUDA tensors, and ``scatter_lanes_plain`` (the plain
-``expand_lanes`` + ``index_add_``) for CPU tensors.
+port reproduces that order exactly instead of using float atomics: each
+score cell must receive its query's terms' contributions in term RANK
+order (a term's rank is its position among its query's terms). Within one
+term no two lanes share a key — a term's postings are distinct docs — and
+different queries own different key ranges, so between two ranks every
+update is a plain read-add-write with no atomics.
+
+Two layouts of one chunk table carry that order:
+
+* query-major (``QueryChunks``, ``build_query_chunks``): each query's
+  chunks in rank order, ``qstart[q]:qstart[q+1]`` the rows of query
+  ``q``. The hand-written CUDA kernel (``csrc/stage1_lanes.cu``,
+  expansion and scatter fused, so keys and contributions never reach
+  device memory) runs ONE launch per group: one block per query walks its
+  rows and synchronises between ranks.
+* rank-major (``RankedChunks``, ``build_ranked_chunks``, or
+  ``QueryChunks.ranked`` of a query-major table): rows
+  ``bounds[r]:bounds[r+1]`` hold every query's rank-``r`` chunks.
+  ``scatter_lanes_plain`` (the plain ``expand_lanes`` + ``index_add_``)
+  runs one pass per rank.
+
+``scatter_lanes`` takes the query-major table: the kernel for CUDA
+tensors, the plain version on its rank-major view for CPU tensors.
 """
 
 from __future__ import annotations
@@ -65,6 +77,17 @@ def posting_cfac(postings_docs: torch.Tensor, postings_weights: torch.Tensor,
 ALIGN = 1024
 
 
+def _chunk_spans(starts, lens):
+    """Per term: aligned first offset, lead-in before the term's first
+    posting, lanes spanned from the aligned offset, and chunk count."""
+    starts = np.asarray(starts, np.int64)
+    lens = np.asarray(lens, np.int64)
+    off0 = (starts // ALIGN) * ALIGN
+    lead = starts - off0
+    span = np.where(lens > 0, lead + lens, 0)
+    return off0, lead, span, (span + CHUNK - 1) // CHUNK
+
+
 def build_chunk_table(starts: np.ndarray, lens: np.ndarray,
                       idfs: np.ndarray, qofs: np.ndarray,
                       n_pad: int) -> Tuple[np.ndarray, np.ndarray,
@@ -78,12 +101,7 @@ def build_chunk_table(starts: np.ndarray, lens: np.ndarray,
     flat scatter-key base (query * n_pad). Zero-length terms produce no
     chunks; lanes outside [vstart, vend) are parked by the expansion.
     """
-    starts = np.asarray(starts, np.int64)
-    lens = np.asarray(lens, np.int64)
-    off0 = (starts // ALIGN) * ALIGN
-    lead = starts - off0
-    span = np.where(lens > 0, lead + lens, 0)
-    n_chunks = (span + CHUNK - 1) // CHUNK
+    off0, lead, span, n_chunks = _chunk_spans(starts, lens)
     total = int(n_chunks.sum())
     if total == 0:
         z = np.zeros(0, np.int32)
@@ -145,6 +163,55 @@ def build_ranked_chunks(starts, lens, idfs, qofs, n_pad: int,
                         bounds=bounds)
 
 
+class QueryChunks(NamedTuple):
+    """Chunk table in query-major order: rows ``qstart[q]:qstart[q+1]``
+    hold query ``q``'s chunks, its terms in rank order; ``rank`` is each
+    row's term rank."""
+
+    off: torch.Tensor      # int32 [c]
+    vstart: torch.Tensor   # int32 [c]
+    vend: torch.Tensor     # int32 [c]
+    idf: torch.Tensor      # f32 [c]
+    base: torch.Tensor     # int32 [c]
+    rank: torch.Tensor     # int32 [c]
+    qstart: torch.Tensor   # int32 [n_q + 1]
+
+    def ranked(self) -> RankedChunks:
+        """The same rows regrouped rank-major (stable, so each rank keeps
+        query order): the table ``build_ranked_chunks`` gives for the
+        same terms when they come query by query, as a batch's do."""
+        order = torch.argsort(self.rank, stable=True)
+        counts = torch.bincount(self.rank.long()).tolist()
+        bounds = [0]
+        for n in counts:
+            if n:
+                bounds.append(bounds[-1] + n)
+        return RankedChunks(self.off[order], self.vstart[order],
+                            self.vend[order], self.idf[order],
+                            self.base[order], bounds=bounds)
+
+
+def build_query_chunks(starts, lens, idfs, qofs, n_q: int, n_pad: int,
+                       device) -> QueryChunks:
+    """``build_chunk_table`` over the terms in (query, rank) order,
+    uploaded to ``device``, with each row's term rank and the per-query
+    row starts (``qofs``: the terms' owning queries, each < ``n_q``)."""
+    qofs = np.asarray(qofs, np.int64)
+    order = np.argsort(qofs, kind="stable")
+    starts = np.asarray(starts, np.int64)[order]
+    lens = np.asarray(lens, np.int64)[order]
+    qofs = qofs[order]
+    table = build_chunk_table(starts, lens, np.asarray(idfs)[order], qofs,
+                              n_pad)
+    n_chunks = _chunk_spans(starts, lens)[3]
+    rank = np.repeat(owner_ranks(qofs), n_chunks).astype(np.int32)
+    per_q = np.bincount(np.repeat(qofs, n_chunks), minlength=n_q)
+    qstart = np.zeros(n_q + 1, np.int32)
+    np.cumsum(per_q, out=qstart[1:])
+    return QueryChunks(*(torch.from_numpy(c).to(device)
+                         for c in (*table, rank, qstart)))
+
+
 def expand_lanes(chunk_off, chunk_vstart, chunk_vend, chunk_idf, chunk_base,
                  postings_docs, cfac, park: int):
     """Flat (scatter keys int32, contributions f32) for all chunks' lanes;
@@ -195,16 +262,16 @@ def scatter_lanes_plain(scores: torch.Tensor, cnt: torch.Tensor,
 
 
 def scatter_lanes(scores: torch.Tensor, cnt: torch.Tensor,
-                  chunks: RankedChunks, postings_docs: torch.Tensor,
+                  chunks: QueryChunks, postings_docs: torch.Tensor,
                   cfac: torch.Tensor) -> None:
     """In place: ``scores[key] += idf * cfac`` and ``cnt[key] += 1`` (for a
-    positive contribution) over every lane of ``chunks``, one pass per
-    term rank. CUDA tensors launch the hand-written kernel once per rank;
-    CPU tensors take the plain version."""
+    positive contribution) over every lane of ``chunks``, each cell's
+    terms in rank order. CUDA tensors launch the hand-written kernel once
+    for the whole table; CPU tensors take the plain version on its
+    rank-major view."""
     if scores.device.type == "cpu":
-        scatter_lanes_plain(scores, cnt, chunks, postings_docs, cfac)
+        scatter_lanes_plain(scores, cnt, chunks.ranked(), postings_docs, cfac)
         return
-    for lo, hi in zip(chunks.bounds, chunks.bounds[1:]):
-        _kernels.stage1_scatter_lanes(
-            scores, cnt, chunks.off, chunks.vstart, chunks.vend, chunks.idf,
-            chunks.base, lo, hi, postings_docs, cfac)
+    _kernels.stage1_scatter_lanes(
+        scores, cnt, chunks.qstart, chunks.off, chunks.vstart, chunks.vend,
+        chunks.idf, chunks.base, chunks.rank, postings_docs, cfac)

@@ -9,8 +9,6 @@ first. There is no silent fallback to the CPU: tests opt in to it, and
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 _device = None
@@ -41,29 +39,17 @@ def device() -> torch.device:
     return _device
 
 
-def reference_dir(*parts: str) -> str:
-    """Directory of the reference package ``infidex_tpu`` (or one of its
-    subpackages), which the port's packages overlay."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return os.path.join(root, "infidex_tpu", *parts)
+#: features of the JAX package that the port does not have yet, with the
+#: ROADMAP.md item that queues each
+SHARDING = ("multi-device sharded serving (parallel/sharding.py)",
+            "ROADMAP.md §1 item 2")
+POOL_SCORING = ("device pool scoring (INFIDEX_TPU_POOL_DEVICE=1, "
+                "DeviceIndex.pool_score_dispatch)", "ROADMAP.md §1 item 3")
 
 
-def load_reference_module(package: str, *parts: str):
-    """The reference's module file ``infidex_tpu/<parts>`` loaded once as
-    ``<package>._reference_<stem>`` with ``package`` (a port package) as
-    its ``__package__``, so its relative imports reach the port's
-    modules. A port module that overrides a few of a reference module's
-    methods subclasses what this returns."""
-    import importlib.util
-    import sys
-
-    name = f"{package}._reference_{os.path.splitext(parts[-1])[0]}"
-    mod = sys.modules.get(name)
-    if mod is not None:
-        return mod
-    spec = importlib.util.spec_from_file_location(name, reference_dir(*parts))
-    mod = importlib.util.module_from_spec(spec)
-    mod.__package__ = package
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return mod
+def not_ported(feature: tuple) -> NotImplementedError:
+    """The error a copied module raises where it would reach a feature
+    the port does not have yet (``SHARDING``, ``POOL_SCORING``)."""
+    what, item = feature
+    return NotImplementedError(
+        f"infidex_tpu_torch: {what} is not ported yet ({item})")

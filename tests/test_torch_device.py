@@ -224,3 +224,58 @@ def test_dispatch_then_collect_equals_search_batch():
     handles = pd_.search_batch_dispatch(qs, 30)
     b = pd_.search_batch_collect(handles)
     _assert_same(a, b, exact_scores=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [20, 500])
+def test_heavy_ties_cuda_equals_cpu(k):
+    """The whole Stage 1 on the card (lane kernel, fuzzy block, epilogue)
+    against the CPU on the heavy-tie index: ids, LIM rows and score bits
+    identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    _, offsets, docs, weights, dl, lens = _tie_index()
+    pbuilt = _built(port_builder.BuiltIndex, offsets, docs, weights, dl, lens)
+    idf = lambda t: ref_dev.compute_idf(pbuilt.num_docs, int(lens[t]))
+    qs = [(np.array(t, np.int64), np.array([idf(i) for i in t], np.float32),
+           g) for t, g in (([0], []), ([0, 1], []), ([1, 2, 4], []),
+                           ([3, 0], [np.array([1, 4])]), ([4], []),
+                           ([4, 3, 2, 1, 0], [np.array([0, 2])]))]
+    cpu = port_dev.DeviceIndex(pbuilt, device="cpu").search_batch(qs, k)
+    cuda = port_dev.DeviceIndex(pbuilt, device="cuda").search_batch(qs, k)
+    _assert_same(cpu, cuda, exact_scores=True)
+
+
+@pytest.mark.gpu
+def test_tie_heavy_corpus_stage1_cuda_equals_cpu():
+    """tests/test_lim_class.py's tie-heavy corpus (3000 two-word titles
+    over ten syllables) through the engine's whole Stage 1, at the depths
+    of its nesting test: the card gives the CPU's ids, LIM rows and score
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    import random
+
+    import infidex_tpu_torch as port
+
+    rng = random.Random(5)
+    syll = ["ba", "ce", "do", "fa", "gi", "ha", "ji", "ka", "lo", "me"]
+    titles = [f"Yorin{rng.choice(syll)} {rng.choice(syll).title()}zen"
+              for _ in range(3000)]
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            runtime.set_device(dev)
+            eng = port.SearchEngine.create_default()
+            eng.index_documents([port.Document(i, t)
+                                 for i, t in enumerate(titles)])
+            m = eng.vector_model
+            preps = [m.prepare_stage1(q) for q in
+                     ("yorin", "yorinba cezen", "yorinka", "dozen yorin")]
+            out[dev] = [m.device.search_batch(preps, depth,
+                                              total_docs=m.documents.count)
+                        for depth in (500, 2000)]
+    finally:
+        runtime.set_device("cpu")
+    for a, b in zip(out["cpu"], out["cuda"]):
+        _assert_same(a, b, exact_scores=True)

@@ -233,3 +233,30 @@ def test_cuda_kernel_matches_plain_version(cap):
     torch.cuda.synchronize()
     assert _kernels.launch_counts["fuzzy_match"] == n0 + 2
     assert torch.equal(k1, plain) and torch.equal(k1, k2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_pad,cap,reps", [
+    (1100, 16, 1),      # V_pad not a multiple of the kernel's 512-id tile
+    (1100, 1100, 1),    # cap = V_pad: every passer fits
+    (1664, 300, 13)])   # 312 token rows: more than one shared-memory stage
+def test_cuda_kernel_edge_cases(v_pad, cap, reps):
+    """Rows where more than ``cap`` ids pass, rows where none pass, pad
+    rows, a ragged last tile and row staging: bit-equal to the plain
+    version and deterministic."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    sig, vpop, vlen, elig, qsig, qpop, qlen = _random_state(7, v_pad=v_pad)
+    qsig, qpop, qlen = (np.tile(a, (reps,) + (1,) * (a.ndim - 1))
+                        for a in (qsig, qpop, qlen))
+    args = [a.cuda() for a in _port_args(sig, vpop, vlen, elig, qsig, qpop,
+                                         qlen)]
+    k1 = _kernels.fuzzy_match(*args, cap=cap)
+    k2 = _kernels.fuzzy_match(*args, cap=cap)
+    plain = port_fuzzy.match_plain(*args, cap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, plain) and torch.equal(k1, k2)
+    n_out = (plain < v_pad).sum(dim=1)
+    assert (n_out == 0).any()                   # empty and pad rows
+    if cap < v_pad:                             # rows cut at cap
+        assert (n_out == cap).any()

@@ -128,28 +128,105 @@ def _csr(seed, n_terms=17, n_docs=3000, n_q=5):
             n_docs + 1)
 
 
-def test_ranked_scatter_equals_serial_scatter():
-    """One pass per term rank reproduces a single serial scatter-add of
-    all lanes in (query, term) order — the reference's order — bit for
-    bit."""
-    docs, cfac, starts, lens, idfs, qofs, n_q, n_pad = _csr(11)
-    chunks = port.build_ranked_chunks(starts, lens, idfs, qofs, n_pad, "cpu")
-    assert chunks.bounds[-1] == chunks.off.numel()
-    assert len(chunks.bounds) - 1 == port.owner_ranks(qofs).max() + 1
-    scores = torch.zeros(n_q * n_pad)
-    cnt = torch.zeros(n_q * n_pad)
-    port.scatter_lanes(scores, cnt, chunks, torch.from_numpy(docs),
-                       torch.from_numpy(cfac))
+def _serial_scatter(docs, cfac, starts, lens, idfs, qofs, n_q, n_pad):
+    """numpy: every lane added in (query, term) order — the reference's
+    serial lane order."""
     want = np.zeros(n_q * n_pad, np.float32)
     want_cnt = np.zeros(n_q * n_pad, np.float32)
-    for t in range(lens.size):               # qofs sorted: lane order
+    for t in np.argsort(qofs, kind="stable"):
         s, n = int(starts[t]), int(lens[t])
         keys = qofs[t] * n_pad + docs[s:s + n]
         contrib = np.float32(idfs[t]) * cfac[s:s + n]
         want[keys] += contrib                # distinct keys within a term
         want_cnt[keys] += (contrib > 0).astype(np.float32)
+    return want, want_cnt
+
+
+def test_ranked_scatter_equals_serial_scatter():
+    """One pass per term rank reproduces a single serial scatter-add of
+    all lanes in (query, term) order — the reference's order — bit for
+    bit; so does ``scatter_lanes`` on the query-major table."""
+    docs, cfac, starts, lens, idfs, qofs, n_q, n_pad = _csr(11)
+    chunks = port.build_ranked_chunks(starts, lens, idfs, qofs, n_pad, "cpu")
+    assert chunks.bounds[-1] == chunks.off.numel()
+    assert len(chunks.bounds) - 1 == port.owner_ranks(qofs).max() + 1
+    want, want_cnt = _serial_scatter(docs, cfac, starts, lens, idfs, qofs,
+                                     n_q, n_pad)
+    scores = torch.zeros(n_q * n_pad)
+    cnt = torch.zeros(n_q * n_pad)
+    port.scatter_lanes_plain(scores, cnt, chunks, torch.from_numpy(docs),
+                             torch.from_numpy(cfac))
     assert np.array_equal(scores.numpy(), want)
     assert np.array_equal(cnt.numpy(), want_cnt)
+    qc = port.build_query_chunks(starts, lens, idfs, qofs, n_q, n_pad, "cpu")
+    scores = torch.zeros(n_q * n_pad)
+    cnt = torch.zeros(n_q * n_pad)
+    port.scatter_lanes(scores, cnt, qc, torch.from_numpy(docs),
+                       torch.from_numpy(cfac))
+    assert np.array_equal(scores.numpy(), want)
+    assert np.array_equal(cnt.numpy(), want_cnt)
+
+
+def _tables(seed, n_terms, n_q, shuffle):
+    """Terms owned by random queries (in any order when ``shuffle``),
+    some of length 0, CHUNK and CHUNK + 1."""
+    docs, cfac, starts, lens, idfs, _, _, n_pad = _csr(seed, n_terms=n_terms,
+                                                       n_q=n_q)
+    qofs = np.random.default_rng(seed).integers(0, n_q, n_terms)
+    if not shuffle:
+        qofs = np.sort(qofs)
+    return docs, cfac, starts, lens, idfs, qofs, n_q, n_pad
+
+
+@pytest.mark.parametrize("seed,n_terms,n_q,shuffle", [
+    (11, 17, 5, False), (3, 40, 6, True), (4, 16, 1, False),
+    (8, 30, 9, True)])
+def test_query_major_table_gives_the_rank_major_cells(seed, n_terms, n_q,
+                                                      shuffle):
+    """The query-major table (the kernel's) holds the rank-major table's
+    rows: regrouped by rank it has the same rows in each rank (in the same
+    order when the terms come query by query, as a batch gives them), and
+    through ``scatter_lanes_plain`` it gives the same cells bit for bit."""
+    docs, cfac, starts, lens, idfs, qofs, n_q, n_pad = _tables(
+        seed, n_terms, n_q, shuffle)
+    ranked = port.build_ranked_chunks(starts, lens, idfs, qofs, n_pad, "cpu")
+    qc = port.build_query_chunks(starts, lens, idfs, qofs, n_q, n_pad, "cpu")
+    # query q's rows are qstart[q]:qstart[q+1], its terms in rank order
+    qstart = qc.qstart.tolist()
+    assert len(qstart) == n_q + 1 and qstart[-1] == qc.off.numel()
+    for q in range(n_q):
+        rows = slice(qstart[q], qstart[q + 1])
+        assert (qc.base[rows] == q * n_pad).all()
+        r = qc.rank[rows]
+        assert (r[1:] >= r[:-1]).all()
+    regrouped = qc.ranked()
+    assert regrouped.bounds == ranked.bounds
+
+    def band_rows(table, lo, hi):
+        rows = torch.stack([table.off[lo:hi], table.vstart[lo:hi],
+                            table.vend[lo:hi], table.idf[lo:hi].view(
+                                torch.int32), table.base[lo:hi]], 1)
+        if shuffle:   # order within a rank follows the terms' order
+            rows = rows[np.lexsort(rows.numpy().T[::-1])]
+        return rows
+
+    for lo, hi in zip(ranked.bounds, ranked.bounds[1:]):
+        assert torch.equal(band_rows(regrouped, lo, hi),
+                           band_rows(ranked, lo, hi))
+    cells = []
+    for table in (ranked, regrouped):
+        scores = torch.zeros(n_q * n_pad)
+        cnt = torch.zeros(n_q * n_pad)
+        port.scatter_lanes_plain(scores, cnt, table, torch.from_numpy(docs),
+                                 torch.from_numpy(cfac))
+        cells.append((scores, cnt))
+    assert torch.equal(cells[0][0].view(torch.int32),
+                       cells[1][0].view(torch.int32))
+    assert torch.equal(cells[0][1], cells[1][1])
+    want, want_cnt = _serial_scatter(docs, cfac, starts, lens, idfs, qofs,
+                                     n_q, n_pad)
+    assert np.array_equal(cells[1][0].numpy(), want)
+    assert np.array_equal(cells[1][1].numpy(), want_cnt)
 
 
 def test_owner_ranks():
@@ -161,25 +238,49 @@ def test_owner_ranks():
 def test_cpu_tensors_never_reach_the_kernel_wrapper():
     t = torch.zeros(4)
     i = torch.zeros(1, dtype=torch.int32)
+    q = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError):
-        _kernels.stage1_scatter_lanes(t, t, i, i, i, torch.zeros(1), i, 0, 1,
+        _kernels.stage1_scatter_lanes(t, t, q, i, i, i, torch.zeros(1), i, i,
                                       i, torch.zeros(1))
 
 
+def _sixteen_ranks(seed=21, n_q=7):
+    """Every query has 16 terms; terms overlap in docs, so each cell sums
+    up to 16 contributions in rank order."""
+    docs, cfac, starts, lens, idfs, _, _, n_pad = _csr(seed, n_terms=16 * n_q,
+                                                       n_q=n_q)
+    qofs = np.repeat(np.arange(n_q), 16)
+    return docs, cfac, starts, lens, idfs, qofs, n_q, n_pad
+
+
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("case", ["csr", "shuffled", "16 ranks", "1 query"])
+def test_cuda_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    docs, cfac, starts, lens, idfs, qofs, n_q, n_pad = _csr(5)
+    docs, cfac, starts, lens, idfs, qofs, n_q, n_pad = {
+        "csr": lambda: _csr(5),
+        "shuffled": lambda: _tables(3, 40, 6, True),
+        "16 ranks": _sixteen_ranks,
+        "1 query": lambda: _tables(4, 16, 1, False)}[case]()
     dev = torch.device("cuda")
-    chunks = port.build_ranked_chunks(starts, lens, idfs, qofs, n_pad, dev)
+    qc = port.build_query_chunks(starts, lens, idfs, qofs, n_q, n_pad, dev)
     docs_t = torch.from_numpy(docs).to(dev)
     cfac_t = torch.from_numpy(cfac).to(dev)
     out = []
-    for fn in (port.scatter_lanes, port.scatter_lanes_plain):
+    n0 = _kernels.launch_counts["stage1_scatter_lanes"]
+    for fn, table in ((port.scatter_lanes, qc), (port.scatter_lanes, qc),
+                      (port.scatter_lanes_plain, qc.ranked())):
         s = torch.zeros(n_q * n_pad, device=dev)
         c = torch.zeros(n_q * n_pad, device=dev)
-        fn(s, c, chunks, docs_t, cfac_t)
-        out.append((s.cpu(), c.cpu()))
-    assert torch.equal(out[0][0], out[1][0])
-    assert torch.equal(out[0][1], out[1][1])
+        fn(s, c, table, docs_t, cfac_t)
+        out.append((s.cpu().view(torch.int32), c.cpu()))
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["stage1_scatter_lanes"] == n0 + 2
+    for got in out[:2]:
+        assert torch.equal(got[0], out[2][0])
+        assert torch.equal(got[1], out[2][1])
+    want, want_cnt = _serial_scatter(docs, cfac, starts, lens, idfs, qofs,
+                                     n_q, n_pad)
+    assert np.array_equal(out[0][0].numpy(), want.view(np.int32))
+    assert np.array_equal(out[0][1].numpy(), want_cnt)
