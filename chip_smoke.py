@@ -14,11 +14,15 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      version on the chunk table of a real 128-query batch of that index.
      Bit equality, two identical kernel runs and one launch per group are
      required; both times come from CUDA events, beside the bound and one
-     ``index_add_`` of the pre-expanded lanes ("scatter only").
+     ``index_add_`` of the pre-expanded lanes ("scatter only"). Then one
+     shard's doc window (the second of four) of the same group: kernel
+     equal to plain, and equal to those columns of the full-window run.
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
      indexed and served once on the CPU and once on the card; ids and
-     scores must be identical.
-     Single ``search`` calls are compared the same way.
+     scores must be identical. Single ``search`` calls are compared the
+     same way; so are batches and single queries served by 4 shards on
+     one device, and batches with device pool scoring
+     (``POOL_DEVICE="1"``, every multi-term query on the tier path).
   4. Main path: ``search_batch`` on two batches of 128 bench queries and
      ``search_many`` over 256, with the kernels' launch counts reset just
      before and read just after; the lane kernel must have launched.
@@ -54,6 +58,18 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      under ``INFIDEX_TPU_DEVICE_FACETS=1``: every device count matrix must
      equal ``facet_counts_batch_host`` on the same id lists, and the
      facets those of the host route.
+ 11. Pool scoring (run after phase 6, on the 1M-doc index): phase 4's two
+     batches served with ``POOL_DEVICE="1"`` (tier jobs counted; ids and
+     scores equal to phase 4's; the pool kernel must have launched), then
+     the kernel on real jobs (``prepare_stage1`` +
+     ``TieredStage1.select_pool``, with ``TIER_LANE_BUDGET`` lowered
+     inside the phase when the batches give fewer than 16): bit-equal to
+     its plain version and to the native ``score_pool``, two identical
+     runs, CUDA-event times beside the bound.
+ 12. Sharded serving: the same index served by a mesh of 4 shards on the
+     one card, then by a one-shard mesh: two 128-query batches and 16
+     single ``search`` calls each, identical between the meshes; one
+     lane-kernel launch per shard per group.
 
 At the end no loaded module and no native library may come from the JAX
 package's directory. Each phase prints its seconds. The line before the
@@ -77,6 +93,10 @@ import time
 N_DOCS = 1_000_000
 BATCH = 128
 CROSS_DOCS, CROSS_QUERIES, CROSS_BATCH = 3000, 64, 32
+#: shards of the sharded phases (on one card), single queries of phase 12
+SHARDS, SHARD_SINGLES = 4, 16
+#: pool jobs the pool-kernel check wants at least
+POOL_JOBS_MIN = 16
 #: recall@10 of the JAX reference at this workload (BENCH_r05.json)
 REFERENCE_RECALL = 0.9766
 SINGLE_QUERIES = 64
@@ -195,7 +215,8 @@ def resident_bytes(eng) -> int:
 
 def kernel_phase(torch, eng, queries, _kernels, lanes):
     """Lane kernel vs its plain version on a real batch's chunk table."""
-    from infidex_tpu_torch.index.device import split_batch_by_lanes
+    from infidex_tpu_torch.index.device import (prepare_batch_arrays,
+                                                split_batch_by_lanes)
 
     m = eng.vector_model
     dev_index = m.device
@@ -274,39 +295,113 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
         f"(index_add_ of the pre-expanded lanes) {scatter_ms:.4f} ms; "
         f"bound {bound[0]:.4f} ms by {bound[1]} ({nbytes} B: {n_lanes} "
         f"lanes x 8 B + {cells} cells x 16 B), {bound[0] / ms:.1%} of it")
+
+    # one shard's doc window of the same group: keys query * width +
+    # (doc - doc_lo), lanes of other shards' docs skipped
+    width = dev_index.n_pad // SHARDS
+    doc_lo, doc_hi = width, 2 * width
+    prep = prepare_batch_arrays(dev_index.built, preps[lo:hi])
+    n_t = sum(len(q[0]) for q in preps[lo:hi])
+    wchunks = lanes.build_query_chunks(*(a[:n_t] for a in prep[1:5]),
+                                       hi - lo, width, docs.device)
+
+    def run_window(fn, table):
+        s = torch.zeros((hi - lo) * width, dtype=torch.float32,
+                        device=docs.device)
+        c = torch.zeros_like(s)
+        fn(s, c, table, docs, cfac, doc_lo, doc_hi)
+        return s, c
+
+    n0 = _kernels.launch_counts["stage1_scatter_lanes"]
+    wk = run_window(lanes.scatter_lanes, wchunks)
+    wp = run_window(lanes.scatter_lanes_plain, wchunks.ranked())
+    torch.cuda.synchronize()
+    check(_kernels.launch_counts["stage1_scatter_lanes"] - n0 == 1,
+          "kernel phase: not one launch per shard window")
+    cols = [t.view(hi - lo, dev_index.n_pad)[:, doc_lo:doc_hi].contiguous()
+            for t in k1]
+    for name, a, b, c in (("scores", wk[0], wp[0], cols[0]),
+                          ("cnt", wk[1], wp[1], cols[1])):
+        check(torch.equal(bits(a), bits(b)),
+              f"kernel phase: windowed {name} differ from the plain version")
+        check(torch.equal(bits(a.view(hi - lo, width)), bits(c)),
+              f"kernel phase: windowed {name} differ from the full run's "
+              f"columns")
+    wms = cuda_ms(torch, lambda: lanes.scatter_lanes(
+        wk[0], wk[1], wchunks, docs, cfac, doc_lo, doc_hi), reps=10)
+    log(f"[kernel] shard window [{doc_lo}, {doc_hi}) of the same group "
+        f"({int((wp[1] > 0).sum())} cells): kernel bit-equal to the plain "
+        f"version and to those columns of the full-window run; "
+        f"{wms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, lanes=n_lanes,
                 bound_ms=bound[0], bound_by=bound[1], scatter_ms=scatter_ms)
 
 
-def cross_device_phase(it, runtime, bench):
-    """The same small corpus served on the CPU and on the card, in batches
-    and one query at a time."""
+def cross_device_phase(it, runtime, bench, _kernels):
+    """The same small corpus served on the CPU and on the card: resident
+    batches and single queries, the same under 4 shards on the one
+    device, and batches with device pool scoring."""
+    from infidex_tpu_torch.index import candidates
+    from infidex_tpu_torch.parallel.sharding import make_mesh
+
     titles = bench.make_corpus(CROSS_DOCS)
     queries = bench.make_queries(titles, CROSS_QUERIES)
-    out, single = {}, {}
+
+    def serve(eng, single=True):
+        return (flatten(run_batches(it, eng, queries, CROSS_BATCH)),
+                flatten([eng.search(it.Query(q, 10)) for q in queries])
+                if single else None)
+
+    out = {}
+    pool_launches = 0
     for dev in ("cpu", "cuda"):
         runtime.set_device(dev)
         eng = build_engine(it, titles)
-        res = run_batches(it, eng, queries, CROSS_BATCH)
         check(eng.vector_model.device.device.type == dev,
               f"cross-device: index not on {dev}")
-        out[dev] = flatten(res)
-        single[dev] = flatten([eng.search(it.Query(q, 10)) for q in queries])
+        out["resident", dev] = serve(eng)
+        eng.enable_sharded_serving(mesh=make_mesh(devices=[dev] * SHARDS))
+        check(len(eng.vector_model.sharded.mesh) == SHARDS,
+              "cross-device: not sharded")
+        out["sharded", dev] = serve(eng)
+        eng.disable_sharded_serving()
+        budget = candidates.TIER_LANE_BUDGET
+        candidates.TIER_LANE_BUDGET = 1
+        eng.vector_model.POOL_DEVICE = "1"
+        n0 = _kernels.launch_counts["pool_score"]
+        try:
+            out["pool", dev] = serve(eng, single=False)
+        finally:
+            candidates.TIER_LANE_BUDGET = budget
+            del eng.vector_model.POOL_DEVICE
+        if dev == "cuda":
+            pool_launches = _kernels.launch_counts["pool_score"] - n0
     runtime.set_device("cuda")
-    for what, got in (("search_batch", out), ("search", single)):
-        bad = [q for q, a, b in zip(queries, got["cpu"], got["cuda"])
-               if a != b]
-        check(not bad, f"cross-device {what}: {len(bad)} queries differ, "
-              f"e.g. {bad[:3]}")
-    n_found = sum(bool(r) for r in out["cuda"])
+    check(pool_launches > 0, "cross-device: the pool kernel never launched")
+    for mode in ("resident", "sharded", "pool"):
+        for what, a, b in (("search_batch", out[mode, "cpu"][0],
+                            out[mode, "cuda"][0]),
+                           ("search", out[mode, "cpu"][1],
+                            out[mode, "cuda"][1])):
+            if a is None:
+                continue
+            bad = [q for q, x, y in zip(queries, a, b) if x != y]
+            check(not bad, f"cross-device {mode} {what}: {len(bad)} queries "
+                  f"differ, e.g. {bad[:3]}")
+    n_found = sum(bool(r) for r in out["resident", "cuda"][0])
+    same = sum(a == b for a, b in zip(out["resident", "cuda"][0],
+                                      out["sharded", "cuda"][0]))
     log(f"[cross] {CROSS_DOCS} docs, {len(queries)} queries: CPU and CUDA "
         f"identical (ids and f32 scores) in search_batch and in single "
-        f"search; {n_found} queries with hits")
+        f"search, resident and with {SHARDS} shards on one device, and in "
+        f"search_batch with device pool scoring ({pool_launches} pool "
+        f"kernel launches on the card); {n_found} queries with hits; "
+        f"sharded lists equal to resident on {same}/{len(queries)}")
 
 
 def main_phase(torch, it, eng, queries, _kernels):
     """The slice's main path at 1M docs; returns the launch counts and the
-    first batch's results."""
+    two batches' results."""
     batches = [queries[i:i + BATCH] for i in (0, BATCH)]
     eng.serving_split(reset=True)
     pipe = eng._pipeline
@@ -359,7 +454,7 @@ def main_phase(torch, it, eng, queries, _kernels):
         f"({eng.get_document(top.document_id).indexed_text!r}, score "
         f"{top.score})")
     check(top.document_id == 0, "typo query: doc 0 is not the top hit")
-    return counts, results[0]
+    return counts, results
 
 
 def recall_phase(it, eng, queries, bench):
@@ -832,6 +927,210 @@ def facets_phase(torch, it, bench):
         f"{with_facets} queries with facets, equal to the host route's")
 
 
+def pool_phase(torch, it, eng, queries, resident, _kernels):
+    """Device pool scoring on the 1M-doc index: phase 4's batches with
+    ``POOL_DEVICE="1"``, then the kernel on real jobs against its plain
+    version and the native host scorer."""
+    import numpy as np
+
+    from infidex_tpu_torch.index import candidates
+    from infidex_tpu_torch.ops import pool_score as ps
+
+    m = eng.vector_model
+    dev_index = m.device
+    gate, captured = [], []
+    orig_gate, orig_dispatch = m._tier_gate, dev_index.pool_score_dispatch
+
+    def gate_spy(prep):
+        out = orig_gate(prep)
+        gate.append(bool(out))
+        return out
+
+    def dispatch_spy(jobs, top_k):
+        captured.append((list(jobs), top_k))
+        return orig_dispatch(jobs, top_k)
+
+    m._tier_gate, dev_index.pool_score_dispatch = gate_spy, dispatch_spy
+    m.POOL_DEVICE = "1"
+    walls, results = [], []
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        for i in (0, BATCH):
+            t0 = time.perf_counter()
+            results.append(eng.search_batch([it.Query(q, 10)
+                                             for q in queries[i:i + BATCH]]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = dict(_kernels.launch_counts)
+    finally:
+        del m._tier_gate, dev_index.pool_score_dispatch, m.POOL_DEVICE
+    jobs = [j for js, _ in captured for j in js]
+    log(f"[pool] phase 4's two batches with POOL_DEVICE=\"1\": {sum(gate)} "
+        f"tier jobs, {len(jobs)} pools scored on the card in "
+        f"{len(captured)} dispatches; {[round(w * 1e3, 1) for w in walls]} "
+        f"ms wall; kernel launches {counts}")
+    check(counts["pool_score"] > 0, "pool scoring: the kernel never launched")
+    bad = [q for q, a, b in zip(queries, flatten(results[0] + results[1]),
+                                flatten(resident[0] + resident[1]))
+           if a != b]
+    check(not bad, f"pool scoring: {len(bad)} queries differ from phase 4's,"
+          f" e.g. {bad[:3]}")
+    log(f"[pool] ids and scores equal to phase 4's on all {2 * BATCH} "
+        f"queries")
+
+    top_k = captured[0][1]
+    saved = budget = candidates.TIER_LANE_BUDGET
+    if len(jobs) < POOL_JOBS_MIN:
+        # the reference test's way to put every multi-term query on the
+        # tier path (tests/test_pool_device.py:102), inside this phase only
+        candidates.TIER_LANE_BUDGET = budget = 1
+        try:
+            tiered = m._tiered_for()
+            jobs = []
+            for q in queries[:2 * BATCH]:
+                prep = m.prepare_stage1(q)
+                if prep is None or not tiered.applicable(prep[0], prep[2]):
+                    continue
+                sel = tiered.select_pool(prep[0], prep[1], top_k)
+                if sel is not None:
+                    jobs.append((sel[0], prep[0], prep[1]))
+        finally:
+            candidates.TIER_LANE_BUDGET = saved
+    check(len(jobs) >= 1, "pool scoring: no jobs")
+    args = dev_index.pool_args(jobs)
+    n_jobs, p_pad = args[0].shape
+    t_pad = args[2].shape[1]
+    plain = ps.pool_score_plain(*args)
+    n0 = _kernels.launch_counts["pool_score"]
+    k1, k2 = ps.pool_score(*args), ps.pool_score(*args)
+    torch.cuda.synchronize()
+    check(_kernels.launch_counts["pool_score"] - n0 == 2,
+          "pool kernel: not one launch per call")
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    check(torch.equal(bits(k1), bits(plain)),
+          "pool kernel differs from its plain version")
+    check(torch.equal(bits(k1), bits(k2)), "pool kernel: two runs differ")
+    err = float((k1 - plain).abs().max())
+    got = k1.cpu().numpy()
+    offsets, docs_h = m.built.term_offsets, m.built.postings_docs
+    probes = found = 0
+    for b, (pool, t_ids, t_idfs) in enumerate(jobs):
+        pool = np.asarray(pool, np.int64)
+        want = candidates.score_pool(m.built, t_ids, t_idfs, pool)
+        check(np.array_equal(got[b, :pool.size].view(np.int32),
+                             want.view(np.int32)),
+              f"pool kernel differs from the native score_pool (job {b})")
+        for tid in np.asarray(t_ids, np.int64):
+            s, e = int(offsets[tid]), int(offsets[tid + 1])
+            if e > s:
+                probes += pool.size
+                found += int(np.isin(pool, docs_h[s:e]).sum())
+    times = {"plain": [], "cuda": []}
+    for route in ("plain", "cuda", "cuda", "plain"):
+        fn = ps.pool_score_plain if route == "plain" else ps.pool_score
+        times[route].append(cuda_ms(torch, lambda: fn(*args), reps=10))
+    ms, plain_ms = sum(times["cuda"]) / 2, sum(times["plain"]) / 2
+    # bound: each slot's id, flag and score (9 B), each valid slot's doc
+    # length, the term tables (12 B a job-term), one posting doc read per
+    # (valid slot, term) probe and the weight of each match; operations:
+    # 21 compares per probe and 8 f32 operations per match
+    n_valid = int(args[1].sum())
+    nbytes = 9 * n_jobs * p_pad + 4 * n_valid + 12 * n_jobs * t_pad \
+        + 4 * probes + found
+    bound = bound_ms(nbytes, 21 * probes + 8 * found, F32_PEAK)
+    weights = args[6]
+    log(f"[pool] kernel on {len(jobs)} jobs (TIER_LANE_BUDGET {budget}; "
+        f"[{n_jobs}, {p_pad}] slots, {n_valid} valid, {t_pad} term slots, "
+        f"{probes} probes, {found} matches): bit-equal to the plain version "
+        f"and to the native score_pool, deterministic; kernel {ms:.4f} ms "
+        f"({times['cuda']}), plain {plain_ms:.4f} ms ({times['plain']}); "
+        f"bound {bound[0]:.4f} ms by {bound[1]} ({nbytes} B), "
+        f"{bound[0] / ms:.1%} of it; posting weights uploaded at the first "
+        f"dispatch: {weights.numel() * weights.element_size()} B")
+    return counts, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound[0], bound_by=bound[1])
+
+
+def sharded_phase(torch, it, eng, queries, resident, _kernels):
+    """The 1M-doc index served by SHARDS shards on the one card, then by a
+    one-shard mesh: identical results, one lane launch per shard and
+    group."""
+    from infidex_tpu_torch.parallel.sharding import make_mesh
+
+    m = eng.vector_model
+    singles = queries[:SHARD_SINGLES]
+    runs = {}
+    for n_sh in (SHARDS, 1):
+        t0 = time.perf_counter()
+        eng.enable_sharded_serving(mesh=make_mesh(devices=["cuda:0"] * n_sh))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sdi = m.sharded
+        check(len(sdi.mesh) == n_sh and len(sdi._replicas) == 1,
+              "sharded: wrong mesh")
+        groups = []
+        sdi._search_group = (lambda *a, _f=sdi._search_group:
+                             groups.append(1) or _f(*a))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        walls, batches = [], []
+        for i in (0, BATCH):
+            t0 = time.perf_counter()
+            batches += eng.search_batch([it.Query(q, 10)
+                                         for q in queries[i:i + BATCH]])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        n_groups = len(groups)
+        counts = dict(_kernels.launch_counts)
+        swalls, single = [], []
+        for q in singles:
+            t0 = time.perf_counter()
+            single.append(eng.search(it.Query(q, 10)))
+            torch.cuda.synchronize()
+            swalls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        runs[n_sh] = (flatten(batches), flatten(single))
+        p50, p95 = percentiles_ms(swalls)
+        per_group = counts["stage1_scatter_lanes"] / max(n_groups, 1)
+        log(f"[sharded] {n_sh} shard(s) on one card (n_pad {sdi.n_pad}, "
+            f"shard {sdi.shard_size} docs; built in {build_s:.1f} s): two "
+            f"search_batch of {BATCH} in {[round(w * 1e3, 1) for w in walls]}"
+            f" ms wall; {len(single)} single search p50 {p50:.1f} ms, p95 "
+            f"{p95:.1f} ms; {n_groups} Stage-1 groups in the batches, lane "
+            f"kernel launches {counts['stage1_scatter_lanes']} "
+            f"({per_group:g} per group); peak device memory {peak} B "
+            f"({peak / 2**30:.2f} GiB)")
+        check(n_groups > 0 and counts["stage1_scatter_lanes"]
+              == n_sh * n_groups,
+              f"sharded: {counts['stage1_scatter_lanes']} lane launches for "
+              f"{n_groups} groups of {n_sh} shards")
+        if n_sh == SHARDS:
+            sharded_counts = counts
+            found = check_results(batches, N_DOCS, "sharded batch")
+            check(found >= len(batches) * 0.9,
+                  f"sharded: only {found}/{len(batches)} found anything")
+    eng.disable_sharded_serving()
+    check(m.sharded is None, "sharded: still sharded")
+    for what, i in (("search_batch", 0), ("search", 1)):
+        bad = [q for q, a, b in zip(queries, runs[SHARDS][i], runs[1][i])
+               if a != b]
+        check(not bad, f"sharded {what}: {SHARDS} shards differ from one on "
+              f"{len(bad)} queries, e.g. {bad[:3]}")
+    same = sum(a == b for a, b in zip(runs[SHARDS][0],
+                                      flatten(resident[0] + resident[1])))
+    log(f"[sharded] {SHARDS} shards identical to a one-shard mesh on "
+        f"{2 * BATCH} batch queries and {len(singles)} single queries; "
+        f"lists equal to phase 4's resident lists on {same}/{2 * BATCH} "
+        f"(the sharded route has no host Stage 1, pre-filter or device "
+        f"LCS)")
+    return sharded_counts
+
+
 def loaded_from(root: str):
     """Loaded modules, and native libraries, whose file lies under the
     JAX package's directory ``root``."""
@@ -906,23 +1205,29 @@ def main(argv=None) -> int:
         f"{torch.cuda.memory_allocated()} B")
 
     k = timed("2 kernel", kernel_phase, torch, eng, queries, _kernels, lanes)
-    timed("3 cross-device", cross_device_phase, it, runtime, bench)
+    timed("3 cross-device", cross_device_phase, it, runtime, bench, _kernels)
     counts, resident = timed("4 main", main_phase, torch, it, eng, queries,
                              _kernels)
     if args.recall:
         timed("5 recall", recall_phase, it, eng, queries, bench)
     timed("6 single queries", single_query_phase, it, eng, queries)
+    pool_counts, pk = timed("11 pool scoring", pool_phase, torch, it, eng,
+                            queries, resident, _kernels)
+    shard_counts = timed("12 sharded", sharded_phase, torch, it, eng,
+                         queries, resident, _kernels)
     big, big_titles, vocab, fk, vocab_counts = timed(
         "7 large vocabulary", big_vocab_phase, torch, it, bench, _kernels)
     timed("8 writes", writes_phase, torch, it, bench, big, big_titles, vocab)
     del big
     timed("8 append parity", append_parity_phase, it, runtime, bench)
     seg_counts = timed("9 segments", segments_phase, torch, it, eng,
-                       queries, resident, _kernels, root)
+                       queries, resident[0], _kernels, root)
     del eng
     timed("10 facets", facets_phase, torch, it, bench)
-    log(f"[end] kernel launches by path: main {counts}, large vocabulary "
-        f"{vocab_counts}, segments {seg_counts}; total "
+    by_path = {"main": counts, "large vocabulary": vocab_counts,
+               "segments": seg_counts, "pool scoring": pool_counts,
+               "sharded": shard_counts}
+    log(f"[end] kernel launches by path: {by_path}; total "
         f"{time.perf_counter() - T_START:.1f} s")
     check("jax" not in sys.modules and not any(
         m.startswith(("jax.", "jaxlib", "infidex_tpu.")) for m in sys.modules),
@@ -932,13 +1237,25 @@ def main(argv=None) -> int:
           f"{ref_files}")
 
     # the main path served 4 batches (2 search_batch, 2 in search_many);
-    # the large-vocabulary path 2
+    # the large-vocabulary, pool-scoring and sharded paths 2 each, the
+    # segments path 1
+    batches = {"main": 4, "large vocabulary": 2, "segments": 1,
+               "pool scoring": 2, "sharded": 2}
+
+    def paths(name):
+        return {p: c[name] for p, c in by_path.items()}
+
+    def per_batch(name):
+        return {p: c[name] / batches[p] for p, c in by_path.items()}
+
     print(json.dumps({"kernels": [{
         "name": "stage1_scatter_lanes", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/stage1_lanes.cu",
         "replaces": "infidex_tpu/ops/stage1_lanes.py:184",
         "launches": counts["stage1_scatter_lanes"],
         "launches_per_batch": counts["stage1_scatter_lanes"] / 4,
+        "launches_by_path": paths("stage1_scatter_lanes"),
+        "launches_per_batch_by_path": per_batch("stage1_scatter_lanes"),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
@@ -948,9 +1265,19 @@ def main(argv=None) -> int:
         "replaces": "infidex_tpu/ops/fuzzy.py:59",
         "launches": vocab_counts["fuzzy_match"],
         "launches_per_batch": vocab_counts["fuzzy_match"] / 2,
+        "launches_by_path": paths("fuzzy_match"),
         "max_abs_err": fk["max_abs_err"], "ms": fk["ms"],
         "plain_ms": fk["plain_ms"], "bound_ms": fk["bound_ms"],
-        "bound_by": fk["bound_by"], "library_ms": None}]}), flush=True)
+        "bound_by": fk["bound_by"], "library_ms": None}, {
+        "name": "pool_score", "route": "cuda",
+        "source": "infidex_tpu_torch/csrc/pool_score.cu",
+        "replaces": "infidex_tpu/index/device.py:698",
+        "launches": pool_counts["pool_score"],
+        "launches_per_batch": pool_counts["pool_score"] / 2,
+        "launches_by_path": paths("pool_score"),
+        "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
+        "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
+        "bound_by": pk["bound_by"], "library_ms": None}]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

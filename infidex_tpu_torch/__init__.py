@@ -3,15 +3,13 @@
 A package that stands on its own: it imports ``torch``, never ``jax``,
 and nothing of ``infidex_tpu``. The host modules (engine, vector model,
 candidate assembly, tokenization, coverage oracle, fusion, filters,
-persistence, the native C++ library) are copies of the reference's files,
-unchanged except where they would reach a JAX-only feature that is not
-ported yet (they raise ``NotImplementedError`` there, see
-``runtime.not_ported``). The modules that touch the device are the port's
-own: ``runtime``, ``convert``, ``index/device.py``, ``ops/*``, the device
-methods of ``scoring/pipeline.py`` (``_dispatch_chunk``,
-``_device_collect``) and of ``index/mmap_serving.py``
-(``_dispatch_group``, ``search_batch_collect``), and the CUDA sources
-under ``csrc/``.
+persistence, the native C++ library) are copies of the reference's files.
+The modules that touch the device are the port's own: ``runtime``,
+``convert``, ``index/device.py``, ``ops/*``, ``parallel/sharding.py``
+(sharded serving over a list of devices), the device methods of
+``scoring/pipeline.py`` (``_dispatch_chunk``, ``_device_collect``) and of
+``index/mmap_serving.py`` (``_dispatch_group``, ``search_batch_collect``),
+and the CUDA sources under ``csrc/``.
 
 The device is explicit (``runtime.set_device`` / ``runtime.device``):
 CUDA by default, the CPU only on request.

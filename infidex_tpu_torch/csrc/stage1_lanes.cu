@@ -9,11 +9,17 @@
 // [qstart[q], qstart[q+1]) are query q's chunks, its terms in rank order
 // (rank[c] is the row's term rank). Chunk c covers postings
 // [off[c] + vstart[c], off[c] + vend[c]) of one query term; for every
-// posting p in it:
-//     key        = base[c] + docs[p]           (query * n_pad + doc)
+// posting p in it whose doc lies in the doc window [doc_lo, doc_hi):
+//     key        = base[c] + (docs[p] - doc_lo)   (query * width + local doc)
 //     contrib    = idf[c] * cfac[p]
 //     scores[key] += contrib
 //     cnt[key]    += 1          when contrib > 0
+// Postings outside the window are skipped. An unsharded index passes the
+// whole doc axis (0, n_pad), base = query * n_pad; a document shard of a
+// sharded index (parallel/sharding.py) passes its own range, base =
+// query * shard_size, and every shard walks the same chunk table, as the
+// reference's shard_map program expands the same lanes on every device
+// and scatters only its own docs (infidex_tpu/parallel/sharding.py:178).
 //
 // Determinism. A query's keys lie in its own range [q*n_pad, (q+1)*n_pad),
 // and within one term no two lanes share a key (a term's postings are
@@ -63,6 +69,7 @@ stage1_scatter_lanes_kernel(const int* __restrict__ qstart,
                             const int* __restrict__ rank,
                             const int* __restrict__ docs,
                             const float* __restrict__ cfac,
+                            int doc_lo, int doc_hi,
                             float* __restrict__ scores,
                             float* __restrict__ cnt) {
   const int c0 = qstart[blockIdx.x];
@@ -73,30 +80,38 @@ stage1_scatter_lanes_kernel(const int* __restrict__ qstart,
     if (c > c0 && rank[c] != rank[c - 1]) __syncthreads();
     const long long o = off[c];
     const int ve = vend[c];
-    const int b = base[c];
+    const int b = base[c] - doc_lo;
     const float w = idf[c];
     for (int lane = vstart[c] + threadIdx.x; lane < ve;
          lane += 2 * kThreads) {
       // two lanes of one term: distinct keys, so both loads go first
       const int lane2 = lane + kThreads;
-      const bool two = lane2 < ve;
-      const int key = b + __ldg(docs + o + lane);
+      const int doc = __ldg(docs + o + lane);
+      const bool one = doc >= doc_lo && doc < doc_hi;
+      const int key = b + doc;
       const float add = __fmul_rn(w, __ldg(cfac + o + lane));
       int key2 = key;
       float add2 = 0.0f;
-      if (two) {
-        key2 = b + __ldg(docs + o + lane2);
+      bool two = false;
+      if (lane2 < ve) {
+        const int doc2 = __ldg(docs + o + lane2);
+        two = doc2 >= doc_lo && doc2 < doc_hi;
+        key2 = b + doc2;
         add2 = __fmul_rn(w, __ldg(cfac + o + lane2));
       }
-      const float s = scores[key];
-      const float n = cnt[key];
-      float s2 = 0.0f, n2 = 0.0f;
+      float s = 0.0f, n = 0.0f, s2 = 0.0f, n2 = 0.0f;
+      if (one) {
+        s = scores[key];
+        n = cnt[key];
+      }
       if (two) {
         s2 = scores[key2];
         n2 = cnt[key2];
       }
-      scores[key] = __fadd_rn(s, add);
-      if (add > 0.0f) cnt[key] = __fadd_rn(n, 1.0f);
+      if (one) {
+        scores[key] = __fadd_rn(s, add);
+        if (add > 0.0f) cnt[key] = __fadd_rn(n, 1.0f);
+      }
       if (two) {
         scores[key2] = __fadd_rn(s2, add2);
         if (add2 > 0.0f) cnt[key2] = __fadd_rn(n2, 1.0f);
@@ -109,18 +124,19 @@ stage1_scatter_lanes_kernel(const int* __restrict__ qstart,
 
 extern "C" {
 
-// Launch the scatter of a query-major chunk table of n_q queries on
-// `stream`: one block per query. Returns cudaGetLastError() of the launch
-// (0 on success).
+// Launch the scatter of a query-major chunk table of n_q queries over the
+// doc window [doc_lo, doc_hi) on `stream`: one block per query. Returns
+// cudaGetLastError() of the launch (0 on success).
 int stage1_scatter_lanes(const int* qstart, const int* off, const int* vstart,
                          const int* vend, const float* idf, const int* base,
                          const int* rank, int n_q, const int* docs,
-                         const float* cfac, float* scores, float* cnt,
-                         void* stream) {
+                         const float* cfac, int doc_lo, int doc_hi,
+                         float* scores, float* cnt, void* stream) {
   if (n_q <= 0) return 0;
   stage1_scatter_lanes_kernel<<<n_q, kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-      qstart, off, vstart, vend, idf, base, rank, docs, cfac, scores, cnt);
+      qstart, off, vstart, vend, idf, base, rank, docs, cfac, doc_lo, doc_hi,
+      scores, cnt);
   return static_cast<int>(cudaGetLastError());
 }
 

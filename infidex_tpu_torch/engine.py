@@ -356,9 +356,12 @@ class SearchEngine:
         reference's per-segment search + heap merge (VectorModel.cs:573-585).
         Search results are identical to single-device serving (pinned by
         tests/test_sharded_engine.py on an 8-CPU mesh)."""
-        from .runtime import SHARDING, not_ported
+        from .parallel.sharding import make_mesh
 
-        raise not_ported(SHARDING)
+        with self._rw_lock.write_lock():
+            if mesh is None:
+                mesh = make_mesh(n_devices)
+            self._vector_model.enable_sharding(mesh)
 
     def disable_sharded_serving(self) -> None:
         with self._rw_lock.write_lock():

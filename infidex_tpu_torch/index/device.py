@@ -35,6 +35,7 @@ import torch
 from .. import runtime
 from ..ops import stage1_lanes as lanes
 from ..ops.coverage_kernel import _upload
+from ..ops.pool_score import pool_score
 from .builder import BuiltIndex
 
 K1 = 1.2
@@ -71,24 +72,32 @@ def compute_idf(total_docs: int, df: int) -> float:
     return float(np.log1p(ratio, dtype=np.float32))
 
 
+def order_keys(scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order (score, id) pairs by (score desc, id asc)
+    when taken largest first: the high 32 bits are the order-preserving
+    integer image of the f32 score, the low 32 bits the inverted id
+    (``0 <= id < 2^32``; ``ids`` broadcasts against ``scores``). ``-0.0``
+    is folded into ``+0.0`` first so the two compare equal, as floats
+    do."""
+    bits = (scores + 0.0).contiguous().view(torch.int32)
+    order = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return order.to(torch.int64) * (1 << 32) + (
+        (1 << 32) - 1 - ids.to(torch.int64))
+
+
 def stable_top_k(scores: torch.Tensor, k: int):
     """Top-k of each row by (score desc, doc id asc), exactly.
 
-    Each (score, id) pair becomes one unique int64 key: the high 32 bits
-    are the order-preserving integer image of the f32 score, the low 32
-    bits the inverted id. One top-k over unique keys has no ties, so the
-    selection and its order are the same on every device and at every
-    depth (membership nests across k). ``-0.0`` is folded into ``+0.0``
-    first so the two compare equal, as floats do."""
+    Each (score, id) pair becomes one unique int64 key (``order_keys``).
+    One top-k over unique keys has no ties, so the selection and its order
+    are the same on every device and at every depth (membership nests
+    across k)."""
     one_d = scores.dim() == 1
     if one_d:
         scores = scores[None, :]
     n_pad = scores.shape[-1]
-    bits = (scores + 0.0).contiguous().view(torch.int32)
-    order = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    low = (1 << 32) - 1 - torch.arange(n_pad, device=scores.device,
-                                       dtype=torch.int64)
-    key = order.to(torch.int64) * (1 << 32) + low[None, :]
+    key = order_keys(scores, torch.arange(n_pad, device=scores.device,
+                                          dtype=torch.int64)[None, :])
     top = torch.topk(key, k, dim=1, largest=True, sorted=True).values
     ids = ((1 << 32) - 1 - (top & 0xFFFFFFFF))
     out_scores = torch.gather(scores, 1, ids)
@@ -121,25 +130,14 @@ def _lim_rows(m: torch.Tensor, k: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
-def _fuzzy_block(scores, cnt, postings_docs, doc_lengths, fz_starts,
-                 fz_lens, fz_group, grp_query, total_docs, stop_limit,
-                 avgdl, n_q: int):
-    """On-device fuzzy virtual-term scoring.
-
-    Each fuzzy query token is a group of LD1-matched vocab terms
-    (VectorModel.ExpandMissingTerm, :643-743); its terms' postings expand
-    into a [n_grp, N] presence matrix (deduping the doc union), df is the
-    row sum, idf the BM25 idf of df gated to 0 < df <= stop_limit, and
-    every doc of the group gains ``idf * doc_fac`` (tf = 1) and one
-    distinct-term count. ``fz_*`` and ``grp_query`` are host arrays.
-    Groups add in group order, one pass per group rank (a group's position
-    among its query's groups), so each cell sums in the same order as the
-    reference's [n_q, n_grp] x [n_grp, N] product, with no atomics and no
-    TF32. Returns (scores, cnt, fz_any)."""
-    dev = scores.device
-    f32 = torch.float32
-    n_pad = doc_lengths.shape[0]
-    n_grp = int(grp_query.size)
+def _fuzzy_presence(postings_docs, fz_starts, fz_lens, fz_group, n_grp: int,
+                    doc_lo: int, doc_hi: int) -> torch.Tensor:
+    """[n_grp, doc_hi - doc_lo] f32: 1 where a doc of the window
+    ``[doc_lo, doc_hi)`` carries a posting of one of the group's matched
+    terms (the union of the group's posting docs). ``fz_*`` are host
+    arrays; lanes of docs outside the window park in a dropped slot."""
+    dev = postings_docs.device
+    width = doc_hi - doc_lo
     fz_lens = np.asarray(fz_lens, np.int64)
     f_total = int(fz_lens.sum())
     lens_t = torch.from_numpy(fz_lens).to(dev)
@@ -150,12 +148,22 @@ def _fuzzy_block(scores, cnt, postings_docs, doc_lengths, fz_starts,
     pos = torch.arange(f_total, device=dev) - first[term]
     fidx = torch.from_numpy(np.asarray(fz_starts, np.int64)).to(dev)[term] + pos
     fgrp = torch.from_numpy(np.asarray(fz_group, np.int64)).to(dev)[term]
-    presence = torch.zeros(n_grp * n_pad, dtype=f32, device=dev)
-    presence[fgrp * n_pad + postings_docs[fidx].long()] = 1.0
-    presence = presence.view(n_grp, n_pad)
-    # virtual-term df = distinct posting docs (deleted included, like the
-    # host union over raw postings); exact in f32 below 2^24
-    df = presence.sum(dim=1)
+    local = postings_docs[fidx].long() - doc_lo
+    inside = (local >= 0) & (local < width)
+    presence = torch.zeros(n_grp * width + 1, dtype=torch.float32,
+                           device=dev)
+    presence[torch.where(inside, fgrp * width + local, n_grp * width)] = 1.0
+    return presence[:n_grp * width].view(n_grp, width)
+
+
+def _fuzzy_apply(scores, cnt, presence, df, doc_lengths, grp_query,
+                 total_docs, stop_limit, avgdl, n_q: int):
+    """The fuzzy groups' scores and counts over the docs of ``presence``
+    (``doc_lengths`` the same docs'), given each group's df over the
+    WHOLE index. Returns (scores, cnt, fz_any)."""
+    dev = scores.device
+    f32 = torch.float32
+    n_pad = doc_lengths.shape[0]
     ratio = (total_docs - df + 0.5) / (df + 0.5)
     # f32 log1p differs in the last ulp between XLA, PyTorch's CPU
     # kernels and CUDA's log1pf; the port takes it in f64 and rounds once,
@@ -178,6 +186,34 @@ def _fuzzy_block(scores, cnt, postings_docs, doc_lengths, fz_starts,
         fz_score.index_add_(0, gq[sel], fidf[sel, None] * (pres * doc_fac))
         fz_cnt.index_add_(0, gq[sel], scoring[sel, None] * pres)
     return scores + fz_score, cnt + fz_cnt, fz_cnt > 0.0
+
+
+def _fuzzy_block(scores, cnt, postings_docs, doc_lengths, fz_starts,
+                 fz_lens, fz_group, grp_query, total_docs, stop_limit,
+                 avgdl, n_q: int):
+    """On-device fuzzy virtual-term scoring.
+
+    Each fuzzy query token is a group of LD1-matched vocab terms
+    (VectorModel.ExpandMissingTerm, :643-743); its terms' postings expand
+    into a [n_grp, N] presence matrix (deduping the doc union), df is the
+    row sum, idf the BM25 idf of df gated to 0 < df <= stop_limit, and
+    every doc of the group gains ``idf * doc_fac`` (tf = 1) and one
+    distinct-term count. ``fz_*`` and ``grp_query`` are host arrays.
+    Groups add in group order, one pass per group rank (a group's position
+    among its query's groups), so each cell sums in the same order as the
+    reference's [n_q, n_grp] x [n_grp, N] product, with no atomics and no
+    TF32. The three steps (``_fuzzy_presence``, the df row sum,
+    ``_fuzzy_apply``) run apart on a sharded index, whose df is the sum of
+    the shards' row sums (``parallel/sharding.py``). Returns (scores, cnt,
+    fz_any)."""
+    n_pad = doc_lengths.shape[0]
+    presence = _fuzzy_presence(postings_docs, fz_starts, fz_lens, fz_group,
+                               int(grp_query.size), 0, n_pad)
+    # virtual-term df = distinct posting docs (deleted included, like the
+    # host union over raw postings); exact in f32 below 2^24
+    return _fuzzy_apply(scores, cnt, presence, presence.sum(dim=1),
+                        doc_lengths, grp_query, total_docs, stop_limit,
+                        avgdl, n_q)
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -381,11 +417,13 @@ class DeviceIndex:
         self.live_mask = _upload(np.asarray(live, np.float32), dev)
         self.avgdl = torch.tensor(float(np.float32(avgdl)),
                                   dtype=torch.float32, device=dev)
-        # per-posting BM25+ factor, computed once per index image; the
-        # posting weights are not needed on the device after this
+        # per-posting BM25+ factor, computed once per index image; Stage 1
+        # keeps no posting weights on the device. Pool scoring (off by
+        # default) uploads them at its first dispatch.
+        self._weights_host = np.asarray(pw, np.uint8)
+        self._pool_weights = None
         self.cfac = lanes.posting_cfac(
-            self.postings_docs,
-            _upload(np.asarray(pw, np.uint8), dev),
+            self.postings_docs, _upload(self._weights_host, dev),
             self.doc_lengths, self.avgdl)
         # filter-mask ∧ live-mask device buffers, keyed by mask identity
         self._mask_cache: Dict[int, tuple] = {}
@@ -485,7 +523,8 @@ class DeviceIndex:
         chunks = self._chunks(queries, prep)
         scores = torch.zeros(n_q * n_pad, dtype=f32, device=dev)
         cnt = torch.zeros(n_q * n_pad, dtype=f32, device=dev)
-        lanes.scatter_lanes(scores, cnt, chunks, postings_docs, cfac)
+        lanes.scatter_lanes(scores, cnt, chunks, postings_docs, cfac, 0,
+                            n_pad)
         scores = scores.view(n_q, n_pad)
         cnt = cnt.view(n_q, n_pad)
 
@@ -516,10 +555,70 @@ class DeviceIndex:
         scores, ids, lim = (t.cpu().numpy() for t in h["out"])
         return [(scores[b], ids[b], lim[b]) for b in range(h["n_q"])]
 
-    def pool_score_dispatch(self, jobs, top_k: int):
-        """Device pool scoring (``INFIDEX_TPU_POOL_DEVICE=1``) is not
-        ported: raises ``NotImplementedError``."""
-        raise runtime.not_ported(runtime.POOL_SCORING)
+    # ---- tier-pool scoring (host-selected candidates, device BM25) ----
+    #
+    # The host tier path (index/candidates.py TieredStage1) selects a
+    # few-thousand-doc candidate pool per heavy multi-term query; with
+    # INFIDEX_TPU_POOL_DEVICE=1 its exact BM25+ runs on the device as a
+    # batched binary-search join over the FULL base CSR (ops/pool_score.py,
+    # csrc/pool_score.cu), queued behind the batch's Stage-1 groups.
 
-    def pool_score_collect(self, handle):
-        raise runtime.not_ported(runtime.POOL_SCORING)
+    def pool_score_dispatch(self, jobs, top_k: int):
+        """Async: score B host-selected pools on the device; returns a
+        handle (None for no jobs).
+
+        ``jobs``: list of (pool int64[] ascending live doc ids, term_ids,
+        term_idf). Scoring is exact over the full base CSR, bit-equal to
+        ``candidates.score_pool`` (same f32 op order). Pair with
+        ``pool_score_collect``."""
+        if not jobs:
+            return None
+        args = self.pool_args(jobs)
+        scores = pool_score(*args)
+        k = min(int(top_k), scores.shape[1])
+        top_scores, top_pos = stable_top_k(scores, k)
+        top_ids = torch.gather(args[0], 1, top_pos.long())
+        return dict(out=(top_scores, top_ids), n=len(jobs))
+
+    def pool_args(self, jobs) -> tuple:
+        """The arguments of ``ops.pool_score.pool_score`` for ``jobs`` (see
+        ``pool_score_dispatch``), on this index's device: the pools padded
+        to [B, Pp] (pad id n_pad - 1, not valid), their terms' full base
+        CSR ranges and idfs [B, T], the postings and their uint8 weights
+        (uploaded at the first call: Stage 1 does not keep them), the doc
+        lengths and avgdl. B, Pp and T are the reference's buckets."""
+        offsets = self.built.term_offsets
+        b_pad = _bucket2(len(jobs), 4)
+        p_max = max(int(np.asarray(j[0]).size) for j in jobs)
+        p_pad = _bucket2(max(p_max, 1), 512)
+        t_max = max(len(j[1]) for j in jobs)
+        t_pad = _bucket(max(t_max, 1), 8)
+        pool = np.full((b_pad, p_pad), self.n_pad - 1, np.int32)
+        valid = np.zeros((b_pad, p_pad), bool)
+        starts = np.zeros((b_pad, t_pad), np.int32)
+        lens = np.zeros((b_pad, t_pad), np.int32)
+        idfs = np.zeros((b_pad, t_pad), np.float32)
+        for b, (p, term_ids, term_idf) in enumerate(jobs):
+            p = np.asarray(p)
+            pool[b, : p.size] = p
+            valid[b, : p.size] = True
+            for j, tid in enumerate(np.asarray(term_ids, np.int64)):
+                starts[b, j] = offsets[tid]
+                lens[b, j] = offsets[tid + 1] - offsets[tid]
+                idfs[b, j] = term_idf[j]
+        dev = self.device
+        if self._pool_weights is None:
+            self._pool_weights = _upload(self._weights_host, dev)
+        return (_upload(pool, dev), _upload(valid, dev), _upload(starts, dev),
+                _upload(lens, dev), _upload(idfs, dev), self.postings_docs,
+                self._pool_weights, self.doc_lengths, self.avgdl)
+
+    @staticmethod
+    def pool_score_collect(handle):
+        """Blocking half of ``pool_score_dispatch``: one readback per
+        output; returns [(scores f32[k], ids int32[k])] per job."""
+        if handle is None:
+            return []
+        scores, ids = (t.cpu().numpy() for t in handle["out"])
+        return [(scores[b], ids[b].astype(np.int32))
+                for b in range(handle["n"])]

@@ -672,9 +672,10 @@ class VectorModel:
         self._derived_syn_epoch = (self.synonym_map.mutation_epoch
                                    if self.synonym_map is not None else -1)
         if self._mesh is not None and self.coverage_tables is not None:
-            from ..runtime import SHARDING, not_ported
+            from ..parallel.sharding import ShardedCoverageTables
 
-            raise not_ported(SHARDING)
+            self.sharded_tables = ShardedCoverageTables(
+                self.coverage_tables, self._mesh)
 
     def _try_append_optimized(self) -> bool:
         """Derived structures in O(delta) after an append-only finalize:
@@ -784,9 +785,14 @@ class VectorModel:
 
         The mesh analogue of the reference's per-segment search + merge
         (VectorModel.cs:573-585); index rebuilds re-shard automatically."""
-        from ..runtime import SHARDING, not_ported
+        self._mesh = mesh
+        if self.built is not None:
+            self._build_sharded_index()
+        if self.coverage_tables is not None:
+            from ..parallel.sharding import ShardedCoverageTables
 
-        raise not_ported(SHARDING)
+            self.sharded_tables = ShardedCoverageTables(
+                self.coverage_tables, mesh)
 
     def disable_sharding(self) -> None:
         self._mesh = None
@@ -794,9 +800,11 @@ class VectorModel:
         self.sharded_tables = None
 
     def _build_sharded_index(self) -> None:
-        from ..runtime import SHARDING, not_ported
+        from ..parallel.sharding import ShardedDeviceIndex
 
-        raise not_ported(SHARDING)
+        self.sharded = ShardedDeviceIndex(
+            self.built, self._mesh,
+            self.deleted_arr if self.deleted_arr.size else None)
 
     @property
     def stage1_backend(self):

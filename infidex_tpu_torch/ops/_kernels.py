@@ -36,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FUZZY_TILE = 512
 
 #: launches per kernel since the last reset (one per kernel launch)
-launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0}
+launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
+                 "pool_score": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -98,10 +99,13 @@ def build(verbose: bool = False) -> float:
         lib = ctypes.CDLL(so)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.stage1_scatter_lanes.argtypes = [p, p, p, p, p, p, p, i, p, p,
-                                             p, p, p]
+                                             i, i, p, p, p]
         lib.stage1_scatter_lanes.restype = i
         lib.fuzzy_match.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p, p]
         lib.fuzzy_match.restype = i
+        lib.pool_score.argtypes = [p, p, p, p, p, i, i, i, p,
+                                   ctypes.c_longlong, p, p, p, p, p]
+        lib.pool_score.restype = i
         lib.stage1_error_string.argtypes = [i]
         lib.stage1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -118,13 +122,16 @@ def _check(name: str, t: torch.Tensor, dtype, dev) -> None:
 
 
 def stage1_scatter_lanes(scores, cnt, qstart, off, vstart, vend, idf, base,
-                         rank, postings_docs, cfac) -> None:
+                         rank, postings_docs, cfac, doc_lo: int = 0,
+                         doc_hi: int = (1 << 31) - 1) -> None:
     """``csrc/stage1_lanes.cu`` over a query-major chunk table (see
     ``ops/stage1_lanes.py``: rows ``qstart[q]:qstart[q+1]`` are query
     ``q``'s, in term-rank order), in place on ``scores`` and ``cnt``: ONE
-    launch, one block per query. The caller guarantees that no two lanes
-    of one term share a key, that different queries' keys differ, and
-    that every key lies inside ``scores``."""
+    launch, one block per query. Only postings whose doc lies in
+    ``[doc_lo, doc_hi)`` scatter, at key ``base + doc - doc_lo`` (by
+    default every doc, at ``base + doc``). The caller guarantees that no
+    two lanes of one term share a key, that different queries' keys
+    differ, and that every key of the window lies inside ``scores``."""
     dev = scores.device
     if dev.type != "cuda":
         raise ValueError("stage1_scatter_lanes: CUDA tensors required")
@@ -143,6 +150,9 @@ def stage1_scatter_lanes(scores, cnt, qstart, off, vstart, vend, idf, base,
             == base.numel() == rank.numel()) or qstart.numel() < 1:
         raise ValueError("stage1_scatter_lanes: bad chunk table")
     n_q = qstart.numel() - 1
+    if not 0 <= doc_lo <= doc_hi < (1 << 31):
+        raise ValueError(f"stage1_scatter_lanes: bad doc window "
+                         f"[{doc_lo}, {doc_hi})")
     if n_q == 0 or off.numel() == 0:
         return
     build()
@@ -152,7 +162,8 @@ def stage1_scatter_lanes(scores, cnt, qstart, off, vstart, vend, idf, base,
             qstart.data_ptr(), off.data_ptr(), vstart.data_ptr(),
             vend.data_ptr(), idf.data_ptr(), base.data_ptr(),
             rank.data_ptr(), n_q, postings_docs.data_ptr(), cfac.data_ptr(),
-            scores.data_ptr(), cnt.data_ptr(), stream)
+            int(doc_lo), int(doc_hi), scores.data_ptr(), cnt.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError("stage1_scatter_lanes launch failed: "
                            + _lib.stage1_error_string(rc).decode())
@@ -205,4 +216,58 @@ def fuzzy_match(sig, vpop, vlen, elig, qsig, qpop, qlen, cap: int):
         raise RuntimeError("fuzzy_match launch failed: "
                            + _lib.stage1_error_string(rc).decode())
     launch_counts["fuzzy_match"] += 1
+    return out
+
+
+def pool_score(pool, pool_valid, term_starts, term_lens, term_idf,
+               postings_docs, postings_weights, doc_lengths, avgdl):
+    """``csrc/pool_score.cu``: exact BM25+ of B host-selected pools (see
+    ``ops/pool_score.py``). ``pool`` int32 [B, Pp] ascending doc ids,
+    ``pool_valid`` bool [B, Pp]; ``term_starts``/``term_lens`` int32 and
+    ``term_idf`` f32, each [B, T], over the full base CSR of
+    ``postings_docs`` (int32) / ``postings_weights`` (uint8);
+    ``doc_lengths`` f32 [n_pad] (every pool id below n_pad); ``avgdl`` a
+    one-element f32 tensor. Returns f32 scores [B, Pp]. One launch."""
+    dev = pool.device
+    if dev.type != "cuda":
+        raise ValueError("pool_score: CUDA tensors required")
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt in (("pool", pool, i32), ("pool_valid", pool_valid,
+                                              torch.bool),
+                        ("term_starts", term_starts, i32),
+                        ("term_lens", term_lens, i32),
+                        ("term_idf", term_idf, f32)):
+        if t.device != dev or t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt} on {dev}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: must be a contiguous 2-D tensor")
+    for name, t, dt in (("postings_docs", postings_docs, i32),
+                        ("postings_weights", postings_weights, torch.uint8),
+                        ("doc_lengths", doc_lengths, f32),
+                        ("avgdl", avgdl, f32)):
+        _check(name, t, dt, dev)
+    n_jobs, p_pad = pool.shape
+    t_pad = term_starts.shape[1]
+    if (pool_valid.shape != pool.shape or term_lens.shape != term_starts.shape
+            or term_idf.shape != term_starts.shape
+            or term_starts.shape[0] != n_jobs
+            or postings_weights.numel() != postings_docs.numel()
+            or avgdl.numel() != 1 or postings_docs.numel() == 0):
+        raise ValueError("pool_score: mismatched sizes")
+    out = torch.empty((n_jobs, p_pad), dtype=f32, device=dev)
+    if out.numel() == 0:
+        return out
+    build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.pool_score(
+            pool.data_ptr(), pool_valid.data_ptr(), term_starts.data_ptr(),
+            term_lens.data_ptr(), term_idf.data_ptr(), n_jobs, p_pad, t_pad,
+            postings_docs.data_ptr(), postings_docs.numel(),
+            postings_weights.data_ptr(), doc_lengths.data_ptr(),
+            avgdl.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("pool_score launch failed: "
+                           + _lib.stage1_error_string(rc).decode())
+    launch_counts["pool_score"] += 1
     return out

@@ -36,7 +36,11 @@ Two layouts of one chunk table carry that order:
   runs one pass per rank.
 
 ``scatter_lanes`` takes the query-major table: the kernel for CUDA
-tensors, the plain version on its rank-major view for CPU tensors.
+tensors, the plain version on its rank-major view for CPU tensors. Both
+take a doc window ``[doc_lo, doc_hi)``: a document shard of a sharded
+index (``parallel/sharding.py``) walks the same table with its own
+window and keys ``query * shard_size + (doc - doc_lo)``; lanes of other
+shards' docs are skipped (parked at 0.0 by the plain version).
 """
 
 from __future__ import annotations
@@ -75,6 +79,9 @@ def posting_cfac(postings_docs: torch.Tensor, postings_weights: torch.Tensor,
 #: reads each chunk's window; the table layout is kept so the port and
 #: the reference expand identical lane spaces.
 ALIGN = 1024
+
+#: the end of a doc window that takes every doc (doc ids are int32)
+ALL_DOCS = (1 << 31) - 1
 
 
 def _chunk_spans(starts, lens):
@@ -213,9 +220,12 @@ def build_query_chunks(starts, lens, idfs, qofs, n_q: int, n_pad: int,
 
 
 def expand_lanes(chunk_off, chunk_vstart, chunk_vend, chunk_idf, chunk_base,
-                 postings_docs, cfac, park: int):
+                 postings_docs, cfac, park: int, doc_lo: int = 0,
+                 doc_hi: int = ALL_DOCS):
     """Flat (scatter keys int32, contributions f32) for all chunks' lanes;
-    lanes outside a chunk's valid window are parked at ``park`` / 0.0.
+    lanes outside a chunk's valid window, or whose doc lies outside the
+    doc window ``[doc_lo, doc_hi)``, are parked at ``park`` / 0.0. A
+    lane's key is ``base + doc - doc_lo``.
 
     ``postings_docs``/``cfac`` must carry >= CHUNK trailing pad elements
     (every chunk reads CHUNK lanes from its aligned offset)."""
@@ -224,8 +234,10 @@ def expand_lanes(chunk_off, chunk_vstart, chunk_vend, chunk_idf, chunk_base,
     idx = chunk_off.long()[:, None] + lane[None, :]
     valid = ((lane[None, :] >= chunk_vstart.long()[:, None])
              & (lane[None, :] < chunk_vend.long()[:, None]))
+    docs = postings_docs[idx]
+    valid &= (docs >= doc_lo) & (docs < doc_hi)
     contrib = torch.where(valid, chunk_idf[:, None] * cfac[idx], 0.0)
-    keys = torch.where(valid, chunk_base[:, None] + postings_docs[idx],
+    keys = torch.where(valid, chunk_base[:, None] + (docs - doc_lo),
                        torch.tensor(park, dtype=torch.int32, device=dev))
     return keys.reshape(-1), contrib.reshape(-1)
 
@@ -247,15 +259,17 @@ def expand_lanes_reference(chunk_off, chunk_vstart, chunk_vend, chunk_idf,
 
 def scatter_lanes_plain(scores: torch.Tensor, cnt: torch.Tensor,
                         chunks: RankedChunks, postings_docs: torch.Tensor,
-                        cfac: torch.Tensor) -> None:
+                        cfac: torch.Tensor, doc_lo: int = 0,
+                        doc_hi: int = ALL_DOCS) -> None:
     """Plain PyTorch version of ``scatter_lanes`` (same passes, same
-    per-cell addition order). Parked lanes add 0.0 to the last cell."""
+    per-cell addition order, same doc window). Parked lanes add 0.0 to
+    the last cell."""
     park = scores.numel() - 1
     for lo, hi in zip(chunks.bounds, chunks.bounds[1:]):
         keys, contrib = expand_lanes(
             chunks.off[lo:hi], chunks.vstart[lo:hi], chunks.vend[lo:hi],
             chunks.idf[lo:hi], chunks.base[lo:hi], postings_docs, cfac,
-            park)
+            park, doc_lo, doc_hi)
         keys = keys.long()
         scores.index_add_(0, keys, contrib)
         cnt.index_add_(0, keys, (contrib > 0.0).to(torch.float32))
@@ -263,15 +277,19 @@ def scatter_lanes_plain(scores: torch.Tensor, cnt: torch.Tensor,
 
 def scatter_lanes(scores: torch.Tensor, cnt: torch.Tensor,
                   chunks: QueryChunks, postings_docs: torch.Tensor,
-                  cfac: torch.Tensor) -> None:
+                  cfac: torch.Tensor, doc_lo: int = 0,
+                  doc_hi: int = ALL_DOCS) -> None:
     """In place: ``scores[key] += idf * cfac`` and ``cnt[key] += 1`` (for a
-    positive contribution) over every lane of ``chunks``, each cell's
-    terms in rank order. CUDA tensors launch the hand-written kernel once
-    for the whole table; CPU tensors take the plain version on its
-    rank-major view."""
+    positive contribution) over every lane of ``chunks`` whose doc lies in
+    ``[doc_lo, doc_hi)`` (a document shard; the whole doc axis by
+    default), ``key = base + doc - doc_lo``, each cell's terms in rank
+    order. CUDA tensors launch the hand-written kernel once for the whole
+    table; CPU tensors take the plain version on its rank-major view."""
     if scores.device.type == "cpu":
-        scatter_lanes_plain(scores, cnt, chunks.ranked(), postings_docs, cfac)
+        scatter_lanes_plain(scores, cnt, chunks.ranked(), postings_docs, cfac,
+                            doc_lo, doc_hi)
         return
     _kernels.stage1_scatter_lanes(
         scores, cnt, chunks.qstart, chunks.off, chunks.vstart, chunks.vend,
-        chunks.idf, chunks.base, chunks.rank, postings_docs, cfac)
+        chunks.idf, chunks.base, chunks.rank, postings_docs, cfac, doc_lo,
+        doc_hi)

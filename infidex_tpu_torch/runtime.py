@@ -37,19 +37,3 @@ def device() -> torch.device:
                 "port's plain PyTorch path on the CPU.")
         return set_device("cuda")
     return _device
-
-
-#: features of the JAX package that the port does not have yet, with the
-#: ROADMAP.md item that queues each
-SHARDING = ("multi-device sharded serving (parallel/sharding.py)",
-            "ROADMAP.md §1 item 2")
-POOL_SCORING = ("device pool scoring (INFIDEX_TPU_POOL_DEVICE=1, "
-                "DeviceIndex.pool_score_dispatch)", "ROADMAP.md §1 item 3")
-
-
-def not_ported(feature: tuple) -> NotImplementedError:
-    """The error a copied module raises where it would reach a feature
-    the port does not have yet (``SHARDING``, ``POOL_SCORING``)."""
-    what, item = feature
-    return NotImplementedError(
-        f"infidex_tpu_torch: {what} is not ported yet ({item})")

@@ -2008,12 +2008,17 @@ class SearchPipeline:
         independently."""
         from ..ops.coverage_kernel import coverage_fusion_batch
 
-        if self._model.sharded_tables is not None:
-            from ..runtime import SHARDING, not_ported
-
-            raise not_ported(SHARDING)
-        tables = self._model.coverage_tables
         q_args, qlen_arg, lcs_args = wave_args
+        if self._model.sharded_tables is not None:
+            from ..parallel.sharding import sharded_coverage_batch
+
+            # Mesh path: the host routes candidates to their owning shard
+            # and stitches the order back; [3, C] on the first shard's
+            # device (no device LCS: the host computed it).
+            return sharded_coverage_batch(
+                self._model.sharded_tables, ids, qsel, q_args, lcs_v, base,
+                qlen_arg, config)
+        tables = self._model.coverage_tables
         return coverage_fusion_batch(
             tables.word_chars, tables.word_chars_rev, tables.word_lens,
             tables.doc_tokens, tables.doc_tok_offsets,
@@ -2035,11 +2040,17 @@ class SearchPipeline:
             self.device_wait_s += _time.perf_counter() - t0w
             self.device_calls += 1
             score = packed[0][:n]
-            # [2, C] layout: one f32 row = tie<<16 | word_hits<<8 | lcs
-            meta = packed[1][:n].astype(np.int64)
-            tie = meta >> 16
-            wh = (meta >> 8) & 255
-            lcs_row = meta & 255
+            if len(packed) == 2:
+                # device-LCS layout: one f32 row = tie<<16 | wh<<8 | lcs
+                meta = packed[1][:n].astype(np.int64)
+                tie = meta >> 16
+                wh = (meta >> 8) & 255
+                lcs_row = meta & 255
+            else:
+                # [3, C] (sharded tables, no text table): host LCS
+                tie = packed[1][:n]
+                wh = packed[2][:n]
+                lcs_row = None
             order = np.argsort(qsel, kind="stable")
             sq = qsel[order]
             uq, starts = np.unique(sq, return_index=True)
@@ -2056,12 +2067,13 @@ class SearchPipeline:
                     zero = memo[g_idx] == 0
                     memo[g_idx[zero]] = np.minimum(
                         g_wh[zero].astype(np.int64), 255)
-                    # fill the truncation memo (finish_fast reads
-                    # lcs_memo_arr > 0)
-                    lmemo = job["lcs_memo_arr"]
-                    g_lcs = lcs_row[rows]
-                    lz = lmemo[g_idx] == 0
-                    lmemo[g_idx[lz]] = g_lcs[lz]
+                    if lcs_row is not None:
+                        # device-LCS builds: fill the truncation memo
+                        # (finish_fast reads lcs_memo_arr > 0)
+                        lmemo = job["lcs_memo_arr"]
+                        g_lcs = lcs_row[rows]
+                        lz = lmemo[g_idx] == 0
+                        lmemo[g_idx[lz]] = g_lcs[lz]
                     job["res_scores"].append(score[rows].astype(np.float32))
                     job["res_ties"].append(tie[rows].astype(np.int64))
                     job["res_keys"].append(keys[rows])

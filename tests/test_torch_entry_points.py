@@ -15,6 +15,7 @@ Two kinds of check:
 
 import importlib
 import os
+import types
 
 import numpy as np
 import pytest
@@ -37,15 +38,22 @@ torch.set_num_threads(1)
 
 
 def _bind_to_port(mp, mod):
-    """Rebind every class and function that ``mod`` imported from the
-    reference package to the port's object of the same module and name."""
+    """Rebind every class, function and module that ``mod`` imported from
+    the reference package to the port's object of the same module and
+    name."""
     for name, val in list(vars(mod).items()):
-        src = getattr(val, "__module__", None) or ""
-        if (callable(val) and src.startswith("infidex_tpu.")
-                and not name.startswith("test")):
-            pmod = importlib.import_module("infidex_tpu_torch"
-                                           + src[len("infidex_tpu"):])
-            mp.setattr(mod, name, getattr(pmod, val.__name__))
+        if isinstance(val, types.ModuleType):
+            src = val.__name__
+        elif callable(val) and not name.startswith("test"):
+            src = getattr(val, "__module__", None) or ""
+        else:
+            continue
+        if not src.startswith("infidex_tpu."):
+            continue
+        pmod = importlib.import_module("infidex_tpu_torch"
+                                       + src[len("infidex_tpu"):])
+        mp.setattr(mod, name, pmod if isinstance(val, types.ModuleType)
+                   else getattr(pmod, val.__name__))
 
 
 @pytest.fixture(scope="module", autouse=True)

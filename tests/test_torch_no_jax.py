@@ -117,6 +117,34 @@ assert calls, "the device facet counter was not used"
 assert dict(res[0].facets["genre"]) == {"Drama": 2}, res[0].facets
 assert dict(res[1].facets["genre"]) == {"Drama": 1, "Action": 1}
 """,
+    # sharded serving over a mesh of 4 CPU shards (parallel/sharding.py)
+    "sharded": r"""
+eng.enable_sharded_serving(n_devices=4)
+assert len(eng.vector_model.sharded.mesh) == 4
+assert eng.search(it.Query("shawshenk", 5)).records[0].document_id == 0
+res = eng.search_batch([it.Query(q, 5) for q in ("shawshenk", "dark kni")])
+assert res[0].records[0].document_id == 0 and res[1].records
+""",
+    # device pool scoring (ops/pool_score.py) on the tier path
+    "pool": r"""
+from infidex_tpu_torch.index import candidates
+from infidex_tpu_torch.ops import pool_score
+import random
+rng = random.Random(7)
+words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
+peng = it.SearchEngine.create_default()
+peng.index_documents([it.Document(i, " ".join(rng.choices(words, k=4)))
+                      for i in range(400)])
+candidates.TIER_LANE_BUDGET = 1
+peng.vector_model.POOL_DEVICE = "1"
+calls = []
+orig = pool_score.pool_score_plain
+pool_score.pool_score_plain = lambda *a: calls.append(1) or orig(*a)
+res = peng.search_batch([it.Query(q, 5) for q in
+                         ("alpha bravo", "charlie delta echo")])
+assert calls, "the device pool scorer was not used"
+assert res[0].records and res[1].records
+""",
 }
 
 
@@ -137,6 +165,7 @@ def test_port_serves_without_importing_jax():
 
 
 @pytest.mark.parametrize("case", ["search", "search_async", "append",
-                                  "signature", "mmap", "facets"])
+                                  "signature", "mmap", "facets", "sharded",
+                                  "pool"])
 def test_entry_point_runs_without_importing_jax(case):
     _run(case)

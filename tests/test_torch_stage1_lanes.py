@@ -284,3 +284,64 @@ def test_cuda_kernel_matches_plain_version(case):
                                      n_q, n_pad)
     assert np.array_equal(out[0][0].numpy(), want.view(np.int32))
     assert np.array_equal(out[0][1].numpy(), want_cnt)
+
+
+def _window_cells(seed, layout, doc_lo, doc_hi):
+    """Cells of the whole doc axis, and of the window [doc_lo, doc_hi)
+    scattered over a table whose keys are query * width + local doc."""
+    docs, cfac, starts, lens, idfs, qofs, n_q, n_pad = _tables(seed, 30, 5,
+                                                               True)
+    width = doc_hi - doc_lo
+    docs_t, cfac_t = torch.from_numpy(docs), torch.from_numpy(cfac)
+    full = (torch.zeros(n_q * n_pad), torch.zeros(n_q * n_pad))
+    port.scatter_lanes_plain(*full, port.build_ranked_chunks(
+        starts, lens, idfs, qofs, n_pad, "cpu"), docs_t, cfac_t)
+    win = (torch.zeros(n_q * width), torch.zeros(n_q * width))
+    if layout == "rank-major":
+        port.scatter_lanes_plain(*win, port.build_ranked_chunks(
+            starts, lens, idfs, qofs, width, "cpu"), docs_t, cfac_t,
+            doc_lo, doc_hi)
+    else:
+        port.scatter_lanes(*win, port.build_query_chunks(
+            starts, lens, idfs, qofs, n_q, width, "cpu"), docs_t, cfac_t,
+            doc_lo, doc_hi)
+    return ([t.view(n_q, n_pad)[:, doc_lo:doc_hi] for t in full],
+            [t.view(n_q, width) for t in win])
+
+
+@pytest.mark.parametrize("layout", ["rank-major", "query-major"])
+@pytest.mark.parametrize("doc_lo,doc_hi", [(0, 1000), (1000, 2001),
+                                           (0, 3001), (2992, 3001)])
+def test_windowed_scatter_equals_columns_of_the_full_scatter(layout, doc_lo,
+                                                             doc_hi):
+    """A document shard's scatter (keys query * width + doc - doc_lo,
+    lanes of other docs skipped) gives that shard's columns of the whole
+    axis' scatter, bit for bit, on both layouts."""
+    want, got = _window_cells(3, layout, doc_lo, doc_hi)
+    assert torch.equal(got[0].view(torch.int32),
+                       want[0].contiguous().view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert (got[1] > 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("doc_lo,doc_hi", [(0, 1000), (1000, 2001),
+                                           (2992, 3001)])
+def test_cuda_windowed_kernel_matches_plain_version(doc_lo, doc_hi):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    docs, cfac, starts, lens, idfs, qofs, n_q, _ = _tables(3, 30, 5, True)
+    width = doc_hi - doc_lo
+    dev = torch.device("cuda")
+    qc = port.build_query_chunks(starts, lens, idfs, qofs, n_q, width, dev)
+    docs_t = torch.from_numpy(docs).to(dev)
+    cfac_t = torch.from_numpy(cfac).to(dev)
+    out = []
+    for fn, table in ((port.scatter_lanes, qc),
+                      (port.scatter_lanes_plain, qc.ranked())):
+        s = torch.zeros(n_q * width, device=dev)
+        c = torch.zeros(n_q * width, device=dev)
+        fn(s, c, table, docs_t, cfac_t, doc_lo, doc_hi)
+        out.append((s.cpu().view(torch.int32), c.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
