@@ -17,6 +17,12 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      ``index_add_`` of the pre-expanded lanes ("scatter only"). Then one
      shard's doc window (the second of four) of the same group: kernel
      equal to plain, and equal to those columns of the full-window run.
+     Then the edit-distance kernel against its plain version on the
+     candidates of that batch's first coverage block, at each of the
+     coverage program's shape classes (small, narrow, wide; a class the
+     batch does not produce takes the same candidates zero-padded to its
+     widths): bit equality on all five tensors, two identical runs,
+     CUDA-event times beside the bound.
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
      indexed and served once on the CPU and once on the card; ids and
      scores must be identical. Single ``search`` calls are compared the
@@ -25,7 +31,8 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      (``POOL_DEVICE="1"``, every multi-term query on the tier path).
   4. Main path: ``search_batch`` on two batches of 128 bench queries and
      ``search_many`` over 256, with the kernels' launch counts reset just
-     before and read just after; the lane kernel must have launched.
+     before and read just after; the lane kernel must have launched, and
+     the edit-distance kernel once per coverage block.
      Prints per-batch wall ms, queries per second, device calls, host
      fallbacks, peak device memory and the top hit of a typo query.
   5. ``--recall``: recall@10 against the depth oracle (bench.py's
@@ -154,6 +161,16 @@ def cuda_ms(torch, fn, reps: int) -> float:
 HBM_BYTES_S = 3.35e12
 F32_PEAK = 67e12
 INT8_PEAK = 1979e12
+#: int32 outside the tensor cores: an SM has half as many int32 lanes as
+#: f32 lanes, and the f32 figure counts a fused multiply-add as two
+INT32_PEAK = F32_PEAK / 4
+#: (Q, L, D) of the coverage program's shape classes
+EDIT_CLASSES = {"small": (4, 12, 8), "narrow": (16, 24, 16),
+                "wide": (16, 24, 64)}
+#: integer operations the edit-distance bound counts per band cell of a
+#: sweep step (compare, two adds, three mins, the validity select, the
+#: clamp) and per cell for the masks and the five rescues
+EDIT_OPS_BAND, EDIT_OPS_FIXED = 8, 200
 
 
 def bound_ms(nbytes: float, ops: float, peak: float):
@@ -337,6 +354,121 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
                 bound_ms=bound[0], bound_by=bound[1], scatter_ms=scatter_ms)
 
 
+def widen_edit_args(torch, args, n_q, n_l, n_d):
+    """The inputs of ``coverage_distances`` zero-padded to a wider shape
+    class: what the coverage program gathers for the same candidates
+    there (absent query rows, doc tokens and chars are zeros, their
+    lengths 0)."""
+    qc3, qr3, qlens2, chars_t, chars_rev_t, lens = args
+    n_c = qc3.shape[2]
+
+    def pad(t, shape):
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+
+    return (pad(qc3, (n_q, n_l, n_c)), pad(qr3, (n_q, n_l, n_c)),
+            pad(qlens2, (n_q, n_c)), pad(chars_t, (n_l, n_d, n_c)),
+            pad(chars_rev_t, (n_l, n_d, n_c)), pad(lens, (n_d, n_c)))
+
+
+def edit_bound(args):
+    """(bytes, integer operations) the edit distances of these inputs
+    need. Bytes: both length tensors in full, of every word its chars
+    plain and reversed (a word's length says that the rest of its row is
+    zeros, so an empty or absent word costs no chars), and five int32
+    outputs written once. Operations: a cell with two non-empty words
+    sweeps a band of 7 over the doc word and a band of 5 over its prefix
+    of q_len + 1 chars."""
+    qc3, _, qlens2, chars_t, _, lens = args
+    n_q, n_l, n_c = qc3.shape
+    n_d = chars_t.shape[1]
+    n_chars = int(qlens2.clamp(0, n_l).sum()) + int(lens.clamp(0, n_l).sum())
+    nbytes = 4 * (qlens2.numel() + lens.numel() + 2 * n_chars
+                  + 5 * n_q * n_d * n_c)
+    ql = qlens2[:, None, :].long()
+    dl = lens[None].long().clamp(max=n_l)
+    live = (ql > 0) & (dl > 0)
+    steps = 7 * dl + 5 * dl.minimum(ql + 1)
+    ops = int((steps * live).sum()) * EDIT_OPS_BAND \
+        + int(live.sum()) * EDIT_OPS_FIXED
+    return nbytes, ops, int(live.sum())
+
+
+def edit_phase(torch, it, eng, queries, _kernels):
+    """The edit-distance kernel against its plain version on the
+    candidates of a real batch's first coverage block, per shape class."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+    from infidex_tpu_torch.ops import editdistance_multi as ed
+
+    seen = {}
+
+    def spy(*args):
+        shape = (args[0].shape[0], args[0].shape[1], args[3].shape[1])
+        seen.setdefault(shape, args)
+        return ed.coverage_distances(*args)
+
+    ck.coverage_distances = spy
+    try:
+        eng.search_batch([it.Query(q, 10) for q in queries[:BATCH]])
+        torch.cuda.synchronize()
+    finally:
+        ck.coverage_distances = ed.coverage_distances
+    check(seen, "edit kernel phase: the batch ran no coverage block")
+    first = next(iter(seen.values()))
+    out = {}
+    for name, shape in EDIT_CLASSES.items():
+        real = shape in seen
+        args = seen[shape] if real else widen_edit_args(torch, first, *shape)
+        plain = ed.coverage_distances_plain(*args)
+        n0 = _kernels.launch_counts["edit_distances"]
+        k1, k2 = ed.coverage_distances(*args), ed.coverage_distances(*args)
+        torch.cuda.synchronize()
+        check(_kernels.launch_counts["edit_distances"] - n0 == 2,
+              "edit kernel phase: not one launch per call")
+        err = 0
+        for what, a, b, c in zip(("dam1", "dam2", "pdam1", "pdam2", "pdam3"),
+                                 k1, k2, plain):
+            check(a.dtype == torch.int32 and a.shape == c.shape
+                  and torch.equal(a, c),
+                  f"edit kernel ({name}): {what} differs from the plain "
+                  f"version")
+            check(torch.equal(a, b), f"edit kernel ({name}): two runs differ")
+            err = max(err, int((a - c).abs().max()))
+        times = {"plain": [], "cuda": []}
+        for route in ("plain", "cuda", "cuda", "plain"):
+            fn = (ed.coverage_distances_plain if route == "plain"
+                  else ed.coverage_distances)
+            times[route].append(cuda_ms(torch, lambda: fn(*args),
+                                        reps=3 if route == "plain" else 20))
+        ms, plain_ms = sum(times["cuda"]) / 2, sum(times["plain"]) / 2
+        nbytes, ops, live = edit_bound(args)
+        bound = bound_ms(nbytes, ops, INT32_PEAK)
+        n_q, n_l, n_d = shape
+        n_c = args[0].shape[2]
+        matched = int((k1[0] <= 1).sum())
+        log(f"[kernel] edit distances, {name} class "
+            f"({'a block of the batch' if real else 'its first block, zero-padded to the class'}"
+            f"; Q {n_q}, L {n_l}, D {n_d}, C {n_c}: {n_q * n_d * n_c} cells, "
+            f"{live} with two non-empty words, {matched} within distance "
+            f"1): bit-equal to the plain version on all five tensors, "
+            f"deterministic; kernel {ms:.4f} ms ({times['cuda']}), plain "
+            f"{plain_ms:.4f} ms ({times['plain']}); bound {bound[0]:.4f} ms "
+            f"by {bound[1]} ({nbytes} B, {ops} integer operations), "
+            f"{bound[0] / ms:.1%} of it"
+            + ("" if real else "; a padded class, whose bound is the "
+               "outputs of cells without words: no measure of the kernel"))
+        check(live > 0 and matched > 0,
+              f"edit kernel ({name}): the block exercises nothing")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1],
+                         bound_bytes=nbytes, bound_ops=ops, real=real,
+                         cells=n_q * n_d * n_c, live=live)
+    log(f"[kernel] coverage blocks of the batch by (Q, L, D): "
+        f"{sorted(seen)}")
+    return out
+
+
 def cross_device_phase(it, runtime, bench, _kernels):
     """The same small corpus served on the CPU and on the card: resident
     batches and single queries, the same under 4 shards on the one
@@ -402,25 +534,33 @@ def cross_device_phase(it, runtime, bench, _kernels):
 def main_phase(torch, it, eng, queries, _kernels):
     """The slice's main path at 1M docs; returns the launch counts and the
     two batches' results."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
     batches = [queries[i:i + BATCH] for i in (0, BATCH)]
     eng.serving_split(reset=True)
     pipe = eng._pipeline
+    blocks = []
+    block = ck._coverage_block
+    ck._coverage_block = lambda *a, **k: blocks.append(1) or block(*a, **k)
     fallback0 = pipe.coverage_host_fallback_count
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     walls, results = [], []
-    for b in batches:
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            results.append(eng.search_batch([it.Query(q, 10) for q in b]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        results.append(eng.search_batch([it.Query(q, 10) for q in b]))
+        many = eng.search_many(
+            [it.Query(q, 10) for q in queries[:2 * BATCH]], batch_size=BATCH)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    many = eng.search_many([it.Query(q, 10) for q in queries[:2 * BATCH]],
-                           batch_size=BATCH)
-    torch.cuda.synchronize()
-    wall_many = time.perf_counter() - t0
-    counts = dict(_kernels.launch_counts)
+        wall_many = time.perf_counter() - t0
+        counts = dict(_kernels.launch_counts)
+    finally:
+        ck._coverage_block = block
     split = eng.serving_split(reset=True)
     peak = torch.cuda.max_memory_allocated()
 
@@ -438,6 +578,11 @@ def main_phase(torch, it, eng, queries, _kernels):
     # threshold: this path runs the lane kernel only (phase 7 runs both)
     check(counts["stage1_scatter_lanes"] > 0,
           "main path: the lane kernel never launched")
+    log(f"[main] {len(blocks)} coverage blocks in the 4 batches, "
+        f"{counts['edit_distances']} edit-distance launches")
+    check(counts["edit_distances"] == len(blocks) > 0,
+          f"main path: {counts['edit_distances']} edit-distance launches "
+          f"for {len(blocks)} coverage blocks")
     flat = [r for b in results for r in b]
     found = check_results(flat, N_DOCS, "search_batch")
     check(found >= len(flat) * 0.9,
@@ -927,15 +1072,11 @@ def facets_phase(torch, it, bench):
         f"{with_facets} queries with facets, equal to the host route's")
 
 
-def pool_phase(torch, it, eng, queries, resident, _kernels):
-    """Device pool scoring on the 1M-doc index: phase 4's batches with
-    ``POOL_DEVICE="1"``, then the kernel on real jobs against its plain
-    version and the native host scorer."""
-    import numpy as np
-
-    from infidex_tpu_torch.index import candidates
-    from infidex_tpu_torch.ops import pool_score as ps
-
+def serve_pool_batches(torch, it, eng, queries, _kernels):
+    """Two 128-query batches with ``POOL_DEVICE="1"``, the kernels' counts
+    reset just before and read just after. Returns the jobs the card
+    scored ((pool, term ids, idfs) each), their top-k, the results, the
+    walls and the counts."""
     m = eng.vector_model
     dev_index = m.device
     gate, captured = [], []
@@ -966,11 +1107,27 @@ def pool_phase(torch, it, eng, queries, resident, _kernels):
     finally:
         del m._tier_gate, dev_index.pool_score_dispatch, m.POOL_DEVICE
     jobs = [j for js, _ in captured for j in js]
-    log(f"[pool] phase 4's two batches with POOL_DEVICE=\"1\": {sum(gate)} "
-        f"tier jobs, {len(jobs)} pools scored on the card in "
-        f"{len(captured)} dispatches; {[round(w * 1e3, 1) for w in walls]} "
-        f"ms wall; kernel launches {counts}")
+    log(f"[pool] two batches with POOL_DEVICE=\"1\": {sum(gate)} tier "
+        f"jobs, {len(jobs)} pools scored on the card in {len(captured)} "
+        f"dispatches; {[round(w * 1e3, 1) for w in walls]} ms wall; kernel "
+        f"launches {counts}")
     check(counts["pool_score"] > 0, "pool scoring: the kernel never launched")
+    return jobs, captured[0][1], results, counts
+
+
+def pool_phase(torch, it, eng, queries, resident, _kernels):
+    """Device pool scoring on the 1M-doc index: phase 4's batches with
+    ``POOL_DEVICE="1"``, then the kernel on real jobs against its plain
+    version and the native host scorer."""
+    import numpy as np
+
+    from infidex_tpu_torch.index import candidates
+    from infidex_tpu_torch.ops import pool_score as ps
+
+    m = eng.vector_model
+    dev_index = m.device
+    jobs, top_k, results, counts = serve_pool_batches(torch, it, eng, queries,
+                                                      _kernels)
     bad = [q for q, a, b in zip(queries, flatten(results[0] + results[1]),
                                 flatten(resident[0] + resident[1]))
            if a != b]
@@ -979,7 +1136,6 @@ def pool_phase(torch, it, eng, queries, resident, _kernels):
     log(f"[pool] ids and scores equal to phase 4's on all {2 * BATCH} "
         f"queries")
 
-    top_k = captured[0][1]
     saved = budget = candidates.TIER_LANE_BUDGET
     if len(jobs) < POOL_JOBS_MIN:
         # the reference test's way to put every multi-term query on the
@@ -1037,7 +1193,8 @@ def pool_phase(torch, it, eng, queries, resident, _kernels):
     # bound: each slot's id, flag and score (9 B), each valid slot's doc
     # length, the term tables (12 B a job-term), one posting doc read per
     # (valid slot, term) probe and the weight of each match; operations:
-    # 21 compares per probe and 8 f32 operations per match
+    # 21 compares per probe (the reference's search depth) and 8 f32
+    # operations per match
     n_valid = int(args[1].sum())
     nbytes = 9 * n_jobs * p_pad + 4 * n_valid + 12 * n_jobs * t_pad \
         + 4 * probes + found
@@ -1205,6 +1362,8 @@ def main(argv=None) -> int:
         f"{torch.cuda.memory_allocated()} B")
 
     k = timed("2 kernel", kernel_phase, torch, eng, queries, _kernels, lanes)
+    ek = timed("2 edit-distance kernel", edit_phase, torch, it, eng, queries,
+               _kernels)
     timed("3 cross-device", cross_device_phase, it, runtime, bench, _kernels)
     counts, resident = timed("4 main", main_phase, torch, it, eng, queries,
                              _kernels)
@@ -1277,7 +1436,21 @@ def main(argv=None) -> int:
         "launches_by_path": paths("pool_score"),
         "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
-        "bound_by": pk["bound_by"], "library_ms": None}]}), flush=True)
+        "bound_by": pk["bound_by"], "library_ms": None}, {
+        # the numbers of the small class, the one the main path's blocks
+        # are; every class under "by_class"
+        "name": "edit_distances", "route": "cuda",
+        "source": "infidex_tpu_torch/csrc/edit_distances.cu",
+        "replaces": "infidex_tpu/ops/coverage_kernel.py:640",
+        "launches": counts["edit_distances"],
+        "launches_per_batch": counts["edit_distances"] / 4,
+        "launches_by_path": paths("edit_distances"),
+        "launches_per_batch_by_path": per_batch("edit_distances"),
+        "max_abs_err": ek["small"]["max_abs_err"], "ms": ek["small"]["ms"],
+        "plain_ms": ek["small"]["plain_ms"],
+        "bound_ms": ek["small"]["bound_ms"],
+        "bound_by": ek["small"]["bound_by"], "library_ms": None,
+        "by_class": ek}]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

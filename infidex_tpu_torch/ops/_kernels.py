@@ -3,8 +3,9 @@
 Every ``.cu`` source under ``infidex_tpu_torch/csrc`` is compiled on
 first use by one ``nvcc`` call for ``sm_90a`` into ONE shared library
 with a plain C interface, under ``build/infidex_tpu_torch/`` at the
-repository root (named by a hash of all the sources and the flags, so an
-edit to any of them rebuilds), and bound with ``ctypes``. Nothing is
+repository root (named by a hash of all the sources, the headers they
+include and the flags, so an edit to any of them rebuilds), and bound
+with ``ctypes``. Nothing is
 built or imported from CUDA when this module is imported: the CPU tests
 import it on machines without ``nvcc``.
 
@@ -37,7 +38,11 @@ FUZZY_TILE = 512
 
 #: launches per kernel since the last reset (one per kernel launch)
 launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
-                 "pool_score": 0}
+                 "pool_score": 0, "edit_distances": 0}
+
+#: char widths ``csrc/edit_distances.cu`` is compiled for (the coverage
+#: program's L_CAP_SMALL and L_MAX)
+EDIT_CHAR_WIDTHS = (12, 24)
 
 _lib = None
 _lock = threading.Lock()
@@ -59,15 +64,16 @@ def _nvcc() -> str:
     return path
 
 
-def _sources() -> list:
-    """The CUDA sources of the library, in a fixed order."""
+def _sources(ext: str = ".cu") -> list:
+    """The CUDA sources of the library (or, with ``ext=".cuh"``, the
+    headers they include), in a fixed order."""
     return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-                  if f.endswith(".cu"))
+                  if f.endswith(ext))
 
 
 def library_path() -> str:
     tag = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _sources(".cuh"):
         with open(src, "rb") as f:
             tag.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR,
@@ -106,6 +112,9 @@ def build(verbose: bool = False) -> float:
         lib.pool_score.argtypes = [p, p, p, p, p, i, i, i, p,
                                    ctypes.c_longlong, p, p, p, p, p]
         lib.pool_score.restype = i
+        lib.edit_distances.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p,
+                                       p, p, p]
+        lib.edit_distances.restype = i
         lib.stage1_error_string.argtypes = [i]
         lib.stage1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -254,6 +263,9 @@ def pool_score(pool, pool_valid, term_starts, term_lens, term_idf,
             or postings_weights.numel() != postings_docs.numel()
             or avgdl.numel() != 1 or postings_docs.numel() == 0):
         raise ValueError("pool_score: mismatched sizes")
+    if postings_weights.data_ptr() % 4:
+        raise ValueError("pool_score: postings_weights must be 4-byte "
+                         "aligned (the kernel copies it in words)")
     out = torch.empty((n_jobs, p_pad), dtype=f32, device=dev)
     if out.numel() == 0:
         return out
@@ -271,3 +283,47 @@ def pool_score(pool, pool_valid, term_starts, term_lens, term_idf,
                            + _lib.stage1_error_string(rc).decode())
     launch_counts["pool_score"] += 1
     return out
+
+
+def edit_distances(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
+    """``csrc/edit_distances.cu``: the five Stage-2 Damerau distance
+    tensors of one coverage block (see ``ops/editdistance_multi.py
+    coverage_distances``). ``qc3``/``qr3`` int32 [Q, L, C], ``qlens2``
+    int32 [Q, C], ``chars_t``/``chars_rev_t`` int32 [L, D, C], ``lens``
+    int32 [D, C], all contiguous, L one of ``EDIT_CHAR_WIDTHS``. Returns
+    five int32 [Q, D, C] tensors. One launch."""
+    dev = chars_t.device
+    if dev.type != "cuda":
+        raise ValueError("edit_distances: CUDA tensors required")
+    n_l, n_d, n_c = chars_t.shape
+    n_q = qc3.shape[0]
+    for name, t, shape in (("qc3", qc3, (n_q, n_l, n_c)),
+                           ("qr3", qr3, (n_q, n_l, n_c)),
+                           ("qlens2", qlens2, (n_q, n_c)),
+                           ("chars_t", chars_t, (n_l, n_d, n_c)),
+                           ("chars_rev_t", chars_rev_t, (n_l, n_d, n_c)),
+                           ("lens", lens, (n_d, n_c))):
+        if t.device != dev or t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected int32 on {dev}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: must be a contiguous tensor of "
+                             f"shape {shape}")
+    if n_l not in EDIT_CHAR_WIDTHS:
+        raise ValueError(f"edit_distances: {n_l} chars per token, the "
+                         f"kernel is built for {EDIT_CHAR_WIDTHS}")
+    outs = tuple(torch.empty((n_q, n_d, n_c), dtype=torch.int32, device=dev)
+                 for _ in range(5))
+    if outs[0].numel() == 0:
+        return outs
+    build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.edit_distances(
+            qc3.data_ptr(), qr3.data_ptr(), qlens2.data_ptr(),
+            chars_t.data_ptr(), chars_rev_t.data_ptr(), lens.data_ptr(),
+            n_q, n_l, n_d, n_c, *(o.data_ptr() for o in outs), stream)
+    if rc != 0:
+        raise RuntimeError("edit_distances launch failed: "
+                           + _lib.stage1_error_string(rc).decode())
+    launch_counts["edit_distances"] += 1
+    return outs

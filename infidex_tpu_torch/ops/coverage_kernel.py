@@ -36,8 +36,7 @@ import numpy as np
 import torch
 
 from .. import runtime
-from .editdistance_multi import (alignment_tensors, batched_lev_multi,
-                                 damerau_rescue)
+from .editdistance_multi import coverage_distances
 from .editdistance_multi import first_true as _first
 
 # Static capacities
@@ -648,32 +647,10 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
         qc3, qlens2, qr3, chars_t, chars_rev_t, lens, all_valid)
     _Q_SW_D = _q_startswith_d_t(qc3, qlens2, chars_t, lens, all_valid)
 
-    # Edit distances: sweep A (budget 3) gives exact min(lev, 4), shared by
-    # the md=1 and md=2 Damerau values; sweep B stacks the three
-    # prefix-window variants along the D axis.
-    eq_al, eq_qd1, eq_q1d, rev_eq = alignment_tensors(
-        qc3, chars_t, qr3, chars_rev_t)
-    lev3 = batched_lev_multi(qc3, qlens2, chars_t, lens, budget=3, l_max=L)
-    dam1 = damerau_rescue(torch.clamp_max(lev3, 3), eq_al, eq_qd1, eq_q1d,
-                          qlens2, lens, max_distance=1)
-    dam2 = damerau_rescue(lev3, eq_al, eq_qd1, eq_q1d, qlens2, lens,
-                          max_distance=2, rev_eq=rev_eq)
-    ql_b = qlens2[:, None, :]                                   # [Q,1,C]
-    dl1 = torch.minimum(lens[None], ql_b)                       # [Q,D,C]
-    dl2 = torch.minimum(lens[None], ql_b + 1)
-    dl3 = torch.minimum(lens[None], torch.clamp_min(ql_b - 1, 0))
-    chars3 = torch.cat([chars_t, chars_t, chars_t], dim=1)      # [L,3D,C]
-    dl_stack = torch.cat([dl1, dl2, dl3], dim=1)                # [Q,3D,C]
-    lev_p = batched_lev_multi(qc3, qlens2, chars3, dl_stack,
-                              budget=2, l_max=L)
-    del chars3, dl_stack
-    pdam1 = damerau_rescue(lev_p[:, :D], eq_al, eq_qd1, eq_q1d,
-                           qlens2, dl1, max_distance=1)
-    pdam2 = damerau_rescue(lev_p[:, D:2 * D], eq_al, eq_qd1, eq_q1d,
-                           qlens2, dl2, max_distance=1)
-    pdam3 = damerau_rescue(lev_p[:, 2 * D:], eq_al, eq_qd1, eq_q1d,
-                           qlens2, dl3, max_distance=1)
-    del lev_p, eq_al, eq_qd1, eq_q1d, rev_eq
+    # Edit distances: two banded sweeps and five Damerau rescues, one
+    # kernel launch on the card (ops/editdistance_multi.py).
+    dam1, dam2, pdam1, pdam2, pdam3 = coverage_distances(
+        qc3, qr3, qlens2, chars_t, chars_rev_t, lens)
 
     def first_true(mask):
         """mask [D,C] -> (any [C], first index [C])."""

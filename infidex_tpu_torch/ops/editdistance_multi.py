@@ -13,6 +13,11 @@ semantics, so results are identical on any device.
 * ``damerau_rescue``: the reference CalculateDamerau transposition rescue
   (Metrics/LevenshteinDistance.cs:281-341) applied to clamped lev values.
 * ``batched_damerau_multi``: convenience wrapper (lev sweep + rescue).
+* ``coverage_distances``: the five Damerau distance tensors the coverage
+  program needs (two sweeps, five rescues). CUDA tensors launch the
+  hand-written kernel ``csrc/edit_distances.cu`` (one launch);
+  ``coverage_distances_plain`` composes the functions above and runs for
+  CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from . import _kernels
 
 
 def _as(x, like: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -238,3 +245,53 @@ def batched_damerau_multi(q_chars, q_lens, d_chars, d_lens,
         q_chars, d_chars, q_chars_rev, d_chars_rev)
     return damerau_rescue(dist, eq, eq_qd1, eq_q1d, q_lens, d_lens,
                           max_distance=max_distance, rev_eq=rev_eq)
+
+
+def coverage_distances_plain(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
+    """Plain PyTorch version of ``coverage_distances`` (same arguments,
+    same result bit for bit)."""
+    L, D, _ = chars_t.shape
+    # Sweep A (budget 3) gives exact min(lev, 4), shared by the md=1 and
+    # md=2 Damerau values; sweep B stacks the three prefix-window variants
+    # along the D axis.
+    eq_al, eq_qd1, eq_q1d, rev_eq = alignment_tensors(
+        qc3, chars_t, qr3, chars_rev_t)
+    lev3 = batched_lev_multi(qc3, qlens2, chars_t, lens, budget=3, l_max=L)
+    dam1 = damerau_rescue(torch.clamp_max(lev3, 3), eq_al, eq_qd1, eq_q1d,
+                          qlens2, lens, max_distance=1)
+    dam2 = damerau_rescue(lev3, eq_al, eq_qd1, eq_q1d, qlens2, lens,
+                          max_distance=2, rev_eq=rev_eq)
+    ql_b = qlens2[:, None, :]                                   # [Q,1,C]
+    dl1 = torch.minimum(lens[None], ql_b)                       # [Q,D,C]
+    dl2 = torch.minimum(lens[None], ql_b + 1)
+    dl3 = torch.minimum(lens[None], torch.clamp_min(ql_b - 1, 0))
+    chars3 = torch.cat([chars_t, chars_t, chars_t], dim=1)      # [L,3D,C]
+    dl_stack = torch.cat([dl1, dl2, dl3], dim=1)                # [Q,3D,C]
+    lev_p = batched_lev_multi(qc3, qlens2, chars3, dl_stack,
+                              budget=2, l_max=L)
+    del chars3, dl_stack
+    pdam1 = damerau_rescue(lev_p[:, :D], eq_al, eq_qd1, eq_q1d,
+                           qlens2, dl1, max_distance=1)
+    pdam2 = damerau_rescue(lev_p[:, D:2 * D], eq_al, eq_qd1, eq_q1d,
+                           qlens2, dl2, max_distance=1)
+    pdam3 = damerau_rescue(lev_p[:, 2 * D:], eq_al, eq_qd1, eq_q1d,
+                           qlens2, dl3, max_distance=1)
+    return dam1, dam2, pdam1, pdam2, pdam3
+
+
+def coverage_distances(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
+    """``(dam1, dam2, pdam1, pdam2, pdam3)``, each int32 [Q, D, C]: every
+    query token against every doc token of each candidate.
+
+    ``qc3``/``qr3`` int32 [Q, L, C] query chars and their reverse,
+    ``qlens2`` int32 [Q, C]; ``chars_t``/``chars_rev_t`` int32 [L, D, C]
+    doc chars (zero where the token is invalid), ``lens`` int32 [D, C].
+    ``dam1``/``dam2``: the Damerau distance clamped above 1 / 2;
+    ``pdam1..3``: the same at max distance 1 against the doc token's
+    prefix of ``q_len``, ``q_len + 1`` and ``q_len - 1`` chars. CUDA
+    tensors launch the kernel; CPU tensors take the plain version."""
+    if chars_t.device.type == "cpu":
+        return coverage_distances_plain(qc3, qr3, qlens2, chars_t,
+                                        chars_rev_t, lens)
+    return _kernels.edit_distances(qc3, qr3, qlens2, chars_t, chars_rev_t,
+                                   lens)

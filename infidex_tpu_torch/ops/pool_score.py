@@ -8,10 +8,15 @@ the pool exactly over the FULL base CSR (no champion clipping), with the
 same f32 operation order as the host scorer ``candidates.score_pool`` and
 its native twin, so the scores are bit-equal whichever side scored them.
 
-For each (job, pool slot) and each term in order, the doc is found by a
-binary search of exactly ``BSEARCH_BITS`` steps in the term's doc-sorted
-posting range, and ``idf * ((tf*(K1+1))/(tf+norm) + DELTA)`` is added
-where it is found. The top-k over pool positions (``stable_top_k``) and
+For each (job, pool slot) and each term in order, the doc is looked up in
+the term's doc-sorted, duplicate-free posting range (its lower bound is
+unique, so every exact search finds the same posting), and
+``idf * ((tf*(K1+1))/(tf+norm) + DELTA)`` is added where it is found. The
+reference searches in exactly ``BSEARCH_BITS`` steps, which is exact for
+ranges of fewer than 2^21 postings; the plain version takes that many
+steps, or as many as its longest range needs, and the kernel searches
+until it converges, so both are exact for a range of any length and equal
+to the reference wherever the reference is exact. The top-k over pool positions (``stable_top_k``) and
 the gather of the ids stay outside the kernel (``index/device.py``).
 
 ``pool_score`` launches the hand-written CUDA kernel
@@ -29,16 +34,18 @@ K1 = 1.2
 B = 0.75
 DELTA = 1.0
 
-#: binary-search depth of the join (the reference's _POOL_BSEARCH_BITS):
-#: covers term posting ranges of up to 2^21 docs
+#: binary-search depth of the reference's join (_POOL_BSEARCH_BITS): exact
+#: for term posting ranges of fewer than 2^21 docs
 BSEARCH_BITS = 21
 
 
 def pool_score_plain(pool, pool_valid, term_starts, term_lens, term_idf,
                      postings_docs, postings_weights, doc_lengths, avgdl):
     """Plain PyTorch version of ``pool_score`` (same arguments, same
-    result bit for bit): a loop over the terms, each a vectorised
-    ``BSEARCH_BITS``-step binary search of every pool slot at once."""
+    result bit for bit): a loop over the terms, each a vectorised binary
+    search of every pool slot at once, ``BSEARCH_BITS`` steps deep or as
+    deep as the longest range needs (steps past convergence change
+    nothing)."""
     f32 = torch.float32
     n_post = postings_docs.numel()
     dl = doc_lengths[pool.long()]
@@ -47,13 +54,15 @@ def pool_score_plain(pool, pool_valid, term_starts, term_lens, term_idf,
     norm = K1 * (1.0 - B + B * (dl / avgdl))
     scores = torch.zeros_like(norm)
     pool64 = pool.long()
+    longest = int(term_lens.max()) if term_lens.numel() else 0
+    steps = max(BSEARCH_BITS, longest.bit_length())
     for j in range(term_starts.shape[1]):
         s = term_starts[:, j:j + 1].long()
         n = term_lens[:, j:j + 1].long()
         idf = term_idf[:, j:j + 1]
         lo = torch.zeros_like(pool64)
         hi = n.expand_as(pool64)
-        for _ in range(BSEARCH_BITS):
+        for _ in range(steps):
             mid = (lo + hi) >> 1
             v = postings_docs[torch.clamp_max(s + mid, n_post - 1)]
             lt = v < pool

@@ -1,18 +1,30 @@
-"""The port's two hand kernels against an earlier design, in one run.
+"""The port's redesigned hand kernels against their earlier designs, in
+one run.
 
-    python3 scripts/kernel_ab.py --old-csrc DIR [--out DIR] [--reps N]
+    python3 scripts/kernel_ab.py [--old-csrc DIR] [--old-pool-csrc DIR]
+                                 [--out DIR] [--reps N]
 
-DIR holds the earlier design's CUDA sources (``stage1_lanes.cu`` and
-``fuzzy_match.cu`` with the C interfaces of commit c7be62e: the lane
-kernel launched once per term rank over a rank-major table, the match
-kernel one block per token row), e.g. unpacked with
-``git archive c7be62e infidex_tpu_torch/csrc``. The script builds them
-with the same ``nvcc`` flags as the port's library, then, on one card:
+``--old-csrc`` holds the earlier lane and match kernels
+(``stage1_lanes.cu`` and ``fuzzy_match.cu`` with the C interfaces of
+commit c7be62e: the lane kernel launched once per term rank over a
+rank-major table, the match kernel one block per token row), e.g.
+unpacked with ``git archive c7be62e infidex_tpu_torch/csrc``;
+``--old-pool-csrc`` the earlier pool kernel (``pool_score.cu`` of commit
+430610c: one thread per slot, 21 global probes per term; same C
+interface as today's). Only the pairs whose directory is given run. The
+script builds the old sources with the same ``nvcc`` flags as the port's
+library, then, on one card:
 
 * lanes: the chunk table of the first 128-query group of bench.py's
   corpus at 1,000,000 docs (chip_smoke.py phase 2's input);
 * match: the unknown tokens of the first 128-query batch of the
-  large-vocabulary corpus (chip_smoke.py phase 7's input).
+  large-vocabulary corpus (chip_smoke.py phase 7's input);
+* pool: the pools the card scores when two 128-query batches of that
+  corpus are served with ``POOL_DEVICE="1"`` (chip_smoke.py phase 11's
+  input).
+
+The pool part also reports how long the narrowed ranges of the run's
+tiles are.
 
 Each pair must give the same bits; then each is timed in turns (old,
 new, new, old), ``--reps`` launches a turn, with CUDA events. Prints one
@@ -33,25 +45,55 @@ sys.path.insert(0, ROOT)
 BATCH = 128
 
 
-def build_old(src_dir: str, out_dir: str):
-    """The earlier design's library, bound with its C interfaces."""
+def _nvcc_old(src_dir: str, names, out_dir: str, so_name: str):
     from infidex_tpu_torch.ops import _kernels
 
-    srcs = [os.path.join(src_dir, f) for f in ("stage1_lanes.cu",
-                                                "fuzzy_match.cu")]
-    so = os.path.join(out_dir, "libinfidex_kernels_old.so")
+    so = os.path.join(out_dir, so_name)
     os.makedirs(out_dir, exist_ok=True)
     res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so,
-                          *srcs], capture_output=True, text=True)
+                          *(os.path.join(src_dir, f) for f in names)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-    lib = ctypes.CDLL(so)
+    return ctypes.CDLL(so)
+
+
+def build_old(src_dir: str, out_dir: str):
+    """The earlier lane and match kernels, bound with their C
+    interfaces."""
+    lib = _nvcc_old(src_dir, ("stage1_lanes.cu", "fuzzy_match.cu"), out_dir,
+                    "libinfidex_kernels_old.so")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.stage1_scatter_lanes.argtypes = [p, p, p, p, p, i, p, p, p, p, p]
     lib.stage1_scatter_lanes.restype = i
     lib.fuzzy_match.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p]
     lib.fuzzy_match.restype = i
     return lib
+
+
+def build_old_pool(src_dir: str, out_dir: str):
+    """The earlier pool kernel (today's C interface)."""
+    lib = _nvcc_old(src_dir, ("pool_score.cu",), out_dir,
+                    "libinfidex_pool_old.so")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pool_score.argtypes = [p, p, p, p, p, i, i, i, p, ctypes.c_longlong,
+                               p, p, p, p, p]
+    lib.pool_score.restype = i
+    return lib
+
+
+def old_pool(torch, lib, pool, valid, starts, lens, idf, docs, weights,
+             doc_lengths, avgdl):
+    out = torch.empty(pool.shape, dtype=torch.float32, device=pool.device)
+    rc = lib.pool_score(pool.data_ptr(), valid.data_ptr(), starts.data_ptr(),
+                        lens.data_ptr(), idf.data_ptr(), pool.shape[0],
+                        pool.shape[1], starts.shape[1], docs.data_ptr(),
+                        docs.numel(), weights.data_ptr(),
+                        doc_lengths.data_ptr(), avgdl.data_ptr(),
+                        out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return out
 
 
 def old_lanes(torch, lib, scores, cnt, ranked, docs, cfac) -> None:
@@ -87,18 +129,67 @@ def in_turns(torch, cs, fns: dict, reps: int) -> dict:
     return times
 
 
-def lanes_ab(torch, cs, it, bench, lib, reps: int) -> dict:
+def bench_engine(cs, it, bench):
+    """bench.py's corpus at 1,000,000 docs, indexed, and 256 queries."""
+    titles = bench.make_corpus(cs.N_DOCS)
+    queries = bench.make_queries(titles, 4 * BATCH)
+    t0 = time.perf_counter()
+    eng = cs.build_engine(it, titles)
+    print(f"[bench corpus] {cs.N_DOCS} docs indexed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return eng, queries
+
+
+def narrowed_ranges(built, jobs, tile: int = 256) -> dict:
+    """How many postings of a term fall inside the doc span of a tile of
+    ``tile`` consecutive pool slots, over every (tile, term) pair of
+    ``jobs`` whose narrowed range is not empty."""
+    import numpy as np
+
+    lens = []
+    for pool, term_ids, _ in jobs:
+        pool = np.asarray(pool)
+        firsts, lasts = pool[::tile], pool[np.minimum(
+            np.arange(tile - 1, pool.size + tile - 1, tile), pool.size - 1)]
+        for t in np.asarray(term_ids, np.int64):
+            p = built.postings_docs[built.term_offsets[t]:
+                                    built.term_offsets[t + 1]]
+            lens.append(np.searchsorted(p, lasts, "right")
+                        - np.searchsorted(p, firsts, "left"))
+    m = np.concatenate(lens)
+    m = m[m > 0]
+    q = np.percentile(m, [50, 90, 99])
+    return dict(tile=tile, pairs=int(m.size), postings=int(m.sum()),
+                mean=float(m.mean()), p50=float(q[0]), p90=float(q[1]),
+                p99=float(q[2]), max=int(m.max()),
+                share_up_to={str(c): float((m <= c).mean())
+                             for c in (256, 1024, 2048, 4096, 16384)})
+
+
+def pool_ab(torch, cs, it, eng, queries, lib, reps: int) -> dict:
+    from infidex_tpu_torch.ops import _kernels
+    from infidex_tpu_torch.ops import pool_score as ps
+
+    jobs, _, _, _ = cs.serve_pool_batches(torch, it, eng, queries, _kernels)
+    args = eng.vector_model.device.pool_args(jobs)
+    args = (*args[:-1], args[-1].reshape(1))
+    fns = {"old": lambda: old_pool(torch, lib, *args),
+           "new": lambda: ps.pool_score(*args)}
+    old, new = (fns[name]().view(torch.int32) for name in ("old", "new"))
+    torch.cuda.synchronize()
+    times = in_turns(torch, cs, fns, reps)
+    return dict(jobs=len(jobs), slots=list(args[0].shape),
+                valid=int(args[1].sum()), term_slots=int(args[2].shape[1]),
+                bit_equal=bool(torch.equal(old, new)), ms=times,
+                narrowed=narrowed_ranges(eng.vector_model.built, jobs))
+
+
+def lanes_ab(torch, cs, eng, queries, lib, reps: int) -> dict:
     from infidex_tpu_torch.index.device import split_batch_by_lanes
     from infidex_tpu_torch.ops import stage1_lanes as lanes
 
-    titles = bench.make_corpus(cs.N_DOCS)
-    queries = bench.make_queries(titles, BATCH)
-    t0 = time.perf_counter()
-    eng = cs.build_engine(it, titles)
-    print(f"[lanes] {cs.N_DOCS} docs indexed in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     m = eng.vector_model
-    preps = [m.prepare_stage1(q) for q in queries]
+    preps = [m.prepare_stage1(q) for q in queries[:BATCH]]
     lo, hi = split_batch_by_lanes(m.device.built, preps)[0]
     chunks = m.device.stage1_chunks(preps[lo:hi])
     ranked = chunks.ranked()
@@ -160,7 +251,8 @@ def match_ab(torch, cs, it, bench, lib, reps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", required=True)
+    ap.add_argument("--old-csrc")
+    ap.add_argument("--old-pool-csrc")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -179,16 +271,24 @@ def main(argv=None) -> int:
     runtime.set_device("cuda")
     card = cs.nvidia_smi_line()
     _kernels.build()
-    lib = build_old(args.old_csrc, args.out)
-    result = dict(card=card, torch=torch.__version__,
-                  lanes=lanes_ab(torch, cs, it, bench, lib, args.reps),
-                  match=match_ab(torch, cs, it, bench, lib, args.reps))
+    if not (args.old_csrc or args.old_pool_csrc):
+        ap.error("give --old-csrc, --old-pool-csrc or both")
+    result = dict(card=card, torch=torch.__version__)
+    eng, queries = bench_engine(cs, it, bench)
+    if args.old_pool_csrc:
+        lib = build_old_pool(args.old_pool_csrc, args.out)
+        result["pool"] = pool_ab(torch, cs, it, eng, queries, lib, args.reps)
+    if args.old_csrc:
+        lib = build_old(args.old_csrc, args.out)
+        result["lanes"] = lanes_ab(torch, cs, eng, queries, lib, args.reps)
+        del eng
+        result["match"] = match_ab(torch, cs, it, bench, lib, args.reps)
     line = json.dumps(result)
     with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:
         f.write(line + "\n")
     print(line, flush=True)
-    ok = result["lanes"]["bit_equal"] and result["match"]["bit_equal"]
-    return 0 if ok else 1
+    return 0 if all(v["bit_equal"] for v in result.values()
+                    if isinstance(v, dict)) else 1
 
 
 if __name__ == "__main__":

@@ -6,8 +6,12 @@ Indexes bench.py's corpus (1M docs by default) with infidex_tpu_torch on
 CUDA, warms up with two batches, then serves one batch under
 torch.profiler (CPU + CUDA activity: device kernel time, kernel count,
 idle share = 1 - device time / wall) and two more under cProfile (host
-time by function, pipeline threads included). Prints a summary and
-writes the full tables to DIR/profile_torch.txt and DIR/profile_host.txt.
+time by function, pipeline threads included). Both are taken twice over,
+in turns: with the Stage-2 edit distances as the plain PyTorch
+composition (``coverage_distances_plain``, the path before the
+hand-written kernel) and as the kernel (``csrc/edit_distances.cu``), on
+the same batches. Prints a summary and writes the full tables to
+DIR/profile_torch_{plain,kernel}.txt and DIR/profile_host_{plain,kernel}.txt.
 """
 
 import argparse
@@ -24,7 +28,8 @@ sys.path.insert(0, ROOT)
 
 BATCH = 128
 #: functions whose cProfile rows the summary prints
-WATCH = ("_dispatch_chunk", "_coverage_block", "_dispatch_group",
+WATCH = ("_dispatch_chunk", "coverage_fusion_batch", "_coverage_block",
+         "coverage_distances", "coverage_distances_plain", "_dispatch_group",
          "_collect_group", "_device_collect", "stage1_scatter_lanes",
          "_assemble_prior")
 
@@ -68,40 +73,66 @@ def main(argv=None):
     print("warm-up walls ms", [round(serve(b) * 1e3, 1) for b in batches[:2]],
           flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = serve(batches[2])
-    ka = prof.key_averages()
-    on_card = [e for e in ka if str(e.device_type).endswith("CUDA")]
-    dev_s = sum(e.self_device_time_total for e in on_card) / 1e6
-    n_kernels = sum(e.count for e in on_card)
-    print(f"[profiler] batch wall {wall * 1e3:.1f} ms; device kernel time "
-          f"{dev_s * 1e3:.1f} ms in {n_kernels} kernels; idle share "
-          f"{1 - dev_s / wall:.4f}", flush=True)
-    with open(os.path.join(args.out, "profile_torch.txt"), "w") as f:
-        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
-        f.write("\n\n")
-        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+    from infidex_tpu_torch.ops import editdistance_multi as ed
 
-    pr = cProfile.Profile()
-    t = time.perf_counter()
-    pr.enable()
-    for b in batches[3:5]:
-        eng.search_batch(b)
-    torch.cuda.synchronize()
-    pr.disable()
-    wall2 = time.perf_counter() - t
-    s = io.StringIO()
-    st = pstats.Stats(pr, stream=s)
-    st.sort_stats("cumulative").print_stats(60)
-    st.sort_stats("tottime").print_stats(40)
-    with open(os.path.join(args.out, "profile_host.txt"), "w") as f:
-        f.write(f"two batches, wall {wall2:.3f} s\n{s.getvalue()}")
-    print(f"[cprofile] two batches in {wall2 * 1e3:.1f} ms wall", flush=True)
-    for (path, line, name), v in sorted(st.stats.items()):
-        if name in WATCH:
-            print(f"  {name} ({os.path.basename(path)}:{line}): calls {v[1]}, "
-                  f"cum {v[3] * 1e3:.1f} ms, self {v[2] * 1e3:.1f} ms")
+    routes = {"plain": ed.coverage_distances_plain,
+              "kernel": ed.coverage_distances}
+
+    def profiled(route):
+        ck.coverage_distances = routes[route]
+        _kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = serve(batches[2])
+        ka = prof.key_averages()
+        on_card = [e for e in ka if str(e.device_type).endswith("CUDA")]
+        dev_s = sum(e.self_device_time_total for e in on_card) / 1e6
+        n_kernels = sum(e.count for e in on_card)
+        print(f"[profiler, distances {route}] batch wall {wall * 1e3:.1f} ms; "
+              f"device kernel time {dev_s * 1e3:.1f} ms in {n_kernels} "
+              f"kernels; idle share {1 - dev_s / wall:.4f}; edit-distance "
+              f"launches {_kernels.launch_counts['edit_distances']}, "
+              f"{sum(e.self_device_time_total for e in on_card if 'edit_distances' in e.key) / 1e3:.3f}"
+              f" ms of device time", flush=True)
+        with open(os.path.join(args.out, f"profile_torch_{route}.txt"),
+                  "w") as f:
+            f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+            f.write("\n\n")
+            f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
+
+    def host_profiled(route):
+        ck.coverage_distances = routes[route]
+        pr = cProfile.Profile()
+        t = time.perf_counter()
+        pr.enable()
+        for b in batches[3:5]:
+            eng.search_batch(b)
+        torch.cuda.synchronize()
+        pr.disable()
+        wall2 = time.perf_counter() - t
+        s = io.StringIO()
+        st = pstats.Stats(pr, stream=s)
+        st.sort_stats("cumulative").print_stats(60)
+        st.sort_stats("tottime").print_stats(40)
+        with open(os.path.join(args.out, f"profile_host_{route}.txt"),
+                  "w") as f:
+            f.write(f"two batches, wall {wall2:.3f} s\n{s.getvalue()}")
+        print(f"[cprofile, distances {route}] two batches in "
+              f"{wall2 * 1e3:.1f} ms wall", flush=True)
+        for (path, line, name), v in sorted(st.stats.items()):
+            if name in WATCH:
+                print(f"  {name} ({os.path.basename(path)}:{line}): calls "
+                      f"{v[1]}, cum {v[3] * 1e3:.1f} ms, self "
+                      f"{v[2] * 1e3:.1f} ms")
+
+    try:
+        for route in ("plain", "kernel", "kernel", "plain"):
+            profiled(route)
+        for route in ("plain", "kernel"):
+            host_profiled(route)
+    finally:
+        ck.coverage_distances = ed.coverage_distances
 
 
 if __name__ == "__main__":

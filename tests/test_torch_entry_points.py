@@ -15,6 +15,7 @@ Two kinds of check:
 
 import importlib
 import os
+import sys
 import types
 
 import numpy as np
@@ -56,15 +57,44 @@ def _bind_to_port(mp, mod):
                    else getattr(pmod, val.__name__))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _reference_tests_on_the_port():
-    mp = pytest.MonkeyPatch()
-    try:
-        for mod in (golden, incremental, mmap_tests, school):
-            _bind_to_port(mp, mod)
-        yield
-    finally:
-        mp.undo()
+def _port_in_sys_modules(mp, *names):
+    """For tests that import inside their bodies: ``import infidex_tpu``
+    (and each ``infidex_tpu.<name>``) resolves to the port's module while
+    ``mp`` holds."""
+    for name in ("",) + tuple("." + n for n in names):
+        mp.setitem(sys.modules, "infidex_tpu" + name,
+                   importlib.import_module("infidex_tpu_torch" + name))
+
+
+def reference_suites_on_port(*suites, sys_modules=None):
+    """For a test module that runs the reference test modules ``suites``
+    on the port: (a module-scoped autouse fixture that binds their
+    reference names to the port's objects and, where ``sys_modules`` is a
+    tuple, the reference package and those of its submodules in
+    ``sys.modules`` too; a test that the names are bound)."""
+
+    @pytest.fixture(scope="module", autouse=True)
+    def bound():
+        mp = pytest.MonkeyPatch()
+        try:
+            for mod in suites:
+                _bind_to_port(mp, mod)
+            if sys_modules is not None:
+                _port_in_sys_modules(mp, *sys_modules)
+            yield
+        finally:
+            mp.undo()
+
+    def names_are_bound():
+        for mod in suites:
+            assert mod.SearchEngine is port.SearchEngine, mod.__name__
+            assert mod.Query is port.Query, mod.__name__
+
+    return bound, names_are_bound
+
+
+_reference_tests_on_the_port, _names_are_bound = reference_suites_on_port(
+    golden, incremental, mmap_tests, school)
 
 
 def _flat(results):
@@ -187,9 +217,7 @@ def test_mmap_serving_matches_reference(tmp_path, monkeypatch):
 # --- the reference suite's tests, on the port ---------------------------
 
 def test_reference_names_are_bound_to_the_port():
-    for mod in (golden, incremental, mmap_tests, school):
-        assert mod.SearchEngine is port.SearchEngine, mod.__name__
-        assert mod.Query is port.Query, mod.__name__
+    _names_are_bound()
     assert incremental.IndexMerger.__module__.startswith("infidex_tpu_torch")
 
 
