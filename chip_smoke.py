@@ -17,12 +17,19 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      ``index_add_`` of the pre-expanded lanes ("scatter only"). Then one
      shard's doc window (the second of four) of the same group: kernel
      equal to plain, and equal to those columns of the full-window run.
-     Then the edit-distance kernel against its plain version on the
-     candidates of that batch's first coverage block, at each of the
-     coverage program's shape classes (small, narrow, wide; a class the
-     batch does not produce takes the same candidates zero-padded to its
-     widths): bit equality on all five tensors, two identical runs,
-     CUDA-event times beside the bound.
+     Then long titles (more than 16 words, words over 12 chars), which
+     the bench corpus lacks: 200 of them served on the CPU and on the
+     card (identical ids and scores), 20,000 on the card, whose coverage
+     blocks are counted by shape (Q, L, D): the small, narrow and wide
+     classes must all occur. Then the pair kernel (word relations and
+     edit distances in one packed word) and the cascade kernel (the four
+     matchers), each against its plain version on the first coverage block
+     of every shape of a bench batch and of the long-title batches: every
+     output equal (``term_matched`` bit for bit), two identical runs, one
+     launch per call, the kernel's device time (torch.profiler, one
+     session per kernel over all its blocks) and its CUDA-event time per
+     back-to-back call beside the bound and one run of the plain version
+     in each of two turns.
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
      indexed and served once on the CPU and once on the card; ids and
      scores must be identical. Single ``search`` calls are compared the
@@ -31,8 +38,8 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      (``POOL_DEVICE="1"``, every multi-term query on the tier path).
   4. Main path: ``search_batch`` on two batches of 128 bench queries and
      ``search_many`` over 256, with the kernels' launch counts reset just
-     before and read just after; the lane kernel must have launched, and
-     the edit-distance kernel once per coverage block.
+     before and read just after; the lane kernel must have launched, the
+     cascade kernel once and the pair kernel twice per coverage block.
      Prints per-batch wall ms, queries per second, device calls, host
      fallbacks, peak device memory and the top hit of a typo query.
   5. ``--recall``: recall@10 against the depth oracle (bench.py's
@@ -141,10 +148,12 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` back-to-back runs
-    (CUDA events; one warm-up run first)."""
-    fn()
+    (CUDA events; one warm-up run first unless ``warm`` is false: the
+    caller has run ``fn`` already)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -156,6 +165,33 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_each(torch, fns, kernel: str, reps: int):
+    """Mean device milliseconds of the kernel whose name contains
+    ``kernel``, for each function of ``fns``, from one torch.profiler
+    session: the kernel alone, where ``cuda_ms`` (events around back-to-back
+    calls) also holds the wrapper's host time whenever that is the longer.
+    Each function (run once before) is run ``reps`` times in turn and
+    launches the kernel once a run, so the kernel's events in launch order
+    fall into one group of ``reps`` per function."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and kernel in e.name),
+                    key=lambda e: e.time_range.start)
+    check(len(events) == reps * len(fns),
+          f"the profiler saw {len(events)} launches of {kernel}, not "
+          f"{reps} for each of {len(fns)} blocks")
+    return [sum(e.time_range.elapsed_us() for e in events[i:i + reps])
+            / reps / 1e3 for i in range(0, len(events), reps)]
+
+
 #: the card's published peaks (NVIDIA H100 SXM data sheet, dense, at its
 #: 700 W limit): HBM bytes/s, f32 outside the tensor cores, int8 tensor ops
 HBM_BYTES_S = 3.35e12
@@ -164,13 +200,19 @@ INT8_PEAK = 1979e12
 #: int32 outside the tensor cores: an SM has half as many int32 lanes as
 #: f32 lanes, and the f32 figure counts a fused multiply-add as two
 INT32_PEAK = F32_PEAK / 4
-#: (Q, L, D) of the coverage program's shape classes
-EDIT_CLASSES = {"small": (4, 12, 8), "narrow": (16, 24, 16),
-                "wide": (16, 24, 64)}
-#: integer operations the edit-distance bound counts per band cell of a
+#: integer operations the pair kernel's bound counts: per band cell of a
 #: sweep step (compare, two adds, three mins, the validity select, the
-#: clamp) and per cell for the masks and the five rescues
-EDIT_OPS_BAND, EDIT_OPS_FIXED = 8, 200
+#: clamp), per live cell for the five rescues, and per live cell for the
+#: four position masks and the relation bits read from them
+EDIT_OPS_BAND, EDIT_OPS_FIXED, PAIR_OPS_FIXED = 8, 120, 80
+#: integer operations the cascade's bound counts per real (query token, doc
+#: token) pair: each of the matchers' passes loads the pair's word, tests
+#: its bits and compares two lengths
+CASCADE_OPS_PAIR = 32
+#: the long-title corpora: a small one served on both devices, a larger
+#: one on the card
+LONG_CROSS_DOCS, LONG_CROSS_QUERIES = 200, 8
+LONG_DOCS = 20_000
 
 
 def bound_ms(nbytes: float, ops: float, peak: float):
@@ -354,118 +396,372 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
                 bound_ms=bound[0], bound_by=bound[1], scatter_ms=scatter_ms)
 
 
-def widen_edit_args(torch, args, n_q, n_l, n_d):
-    """The inputs of ``coverage_distances`` zero-padded to a wider shape
-    class: what the coverage program gathers for the same candidates
-    there (absent query rows, doc tokens and chars are zeros, their
-    lengths 0)."""
-    qc3, qr3, qlens2, chars_t, chars_rev_t, lens = args
-    n_c = qc3.shape[2]
+class BlockSpy:
+    """While active, records what the coverage program hands its two
+    kernels' dispatchers: per shape (Q, L, D) the arguments of the first
+    block's pair call with distances, of its relations-only pair call (the
+    fusion signals' query tokens) and of its cascade call, and how many
+    blocks ran per shape."""
 
-    def pad(t, shape):
-        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
-        out[tuple(slice(0, n) for n in t.shape)] = t
-        return out
+    def __init__(self, ck):
+        self.ck = ck
+        self.pairs, self.fpairs, self.cascade, self.blocks = {}, {}, {}, {}
 
-    return (pad(qc3, (n_q, n_l, n_c)), pad(qr3, (n_q, n_l, n_c)),
-            pad(qlens2, (n_q, n_c)), pad(chars_t, (n_l, n_d, n_c)),
-            pad(chars_rev_t, (n_l, n_d, n_c)), pad(lens, (n_d, n_c)))
+    def __enter__(self):
+        ck = self.ck
+        self._orig = ck.coverage_pairs, ck.coverage_cascade
+        orig_pairs, orig_cascade = self._orig
+
+        def pairs_spy(*args, distances):
+            shape = (args[0].shape[0], args[0].shape[1], args[3].shape[1])
+            (self.pairs if distances else self.fpairs).setdefault(shape, args)
+            return orig_pairs(*args, distances=distances)
+
+        def cascade_spy(*args):
+            shape = (args[0].shape[0], args[8].shape[1], args[0].shape[1])
+            self.cascade.setdefault(shape, args)
+            self.blocks[shape] = self.blocks.get(shape, 0) + 1
+            return orig_cascade(*args)
+
+        ck.coverage_pairs, ck.coverage_cascade = pairs_spy, cascade_spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.coverage_pairs, self.ck.coverage_cascade = self._orig
 
 
-def edit_bound(args):
-    """(bytes, integer operations) the edit distances of these inputs
-    need. Bytes: both length tensors in full, of every word its chars
-    plain and reversed (a word's length says that the rest of its row is
-    zeros, so an empty or absent word costs no chars), and five int32
-    outputs written once. Operations: a cell with two non-empty words
-    sweeps a band of 7 over the doc word and a band of 5 over its prefix
-    of q_len + 1 chars."""
-    qc3, _, qlens2, chars_t, _, lens = args
+def first_block_args(torch, it, eng, queries):
+    """The kernels' arguments in the first coverage block of each shape
+    that one 128-query batch of ``eng`` runs."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
+    with BlockSpy(ck) as spy:
+        eng.search_batch([it.Query(q, 10) for q in queries[:BATCH]])
+        torch.cuda.synchronize()
+    check(spy.cascade, "the batch ran no coverage block")
+    return spy
+
+
+def long_title_corpus(bench, n_docs: int, n_queries: int, seed: int = 77):
+    """Titles that the bench corpus lacks: a fifth with 2-8 words, a third
+    with 9-16, the rest with 17-40, over a 4,000-word list of 2-22 chars
+    (bench.py's syllables), so that candidates fall into the small, narrow
+    and wide shape classes. Returns the titles and two query lists taken
+    from them, of 1-4 and of 5-8 words (the two widths of the query-token
+    axis), some words with a typo, some last words cut to a prefix."""
+    rng = random.Random(seed)
+    vocab, seen = [], set()
+    while len(vocab) < 4000:
+        k = rng.choice((1, 2, 2, 3, 3, 4, 5, 6, 7))
+        w = "".join(rng.choice(bench._SYLLABLES) for _ in range(k))[:22]
+        if len(w) >= 2 and w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    titles = []
+    for _ in range(n_docs):
+        r = rng.random()
+        n = (rng.randint(2, 8) if r < 0.2 else rng.randint(9, 16) if r < 0.55
+             else rng.randint(17, 40))
+        titles.append(" ".join(rng.choice(vocab) for _ in range(n)).title())
+    queries = ([], [])
+    for i in range(2 * n_queries):
+        words = rng.choice(titles).lower().split()
+        k = rng.choice((1, 2, 3, 4) if i % 2 == 0 else (5, 6, 8))
+        start = rng.randrange(max(1, len(words) - k + 1))
+        pick = [bench.typo(w, rng) if len(w) > 3 and rng.random() < 0.4 else w
+                for w in words[start:start + k]]
+        if rng.random() < 0.3:
+            pick[-1] = pick[-1][:max(2, len(pick[-1]) - 2)]
+        queries[i % 2].append(" ".join(pick))
+    return titles, queries[0], queries[1]
+
+
+def long_titles_phase(torch, it, runtime, bench, _kernels):
+    """Narrow and wide coverage blocks through the engine: a small
+    long-title corpus served on the CPU and on the card (identical ids and
+    scores required), then a larger one on the card, whose blocks are
+    counted by shape and whose first block of each shape gives the kernel
+    phases their arguments."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
+    from infidex_tpu_torch.scoring import pipeline
+
+    titles, short_q, long_q = long_title_corpus(bench, LONG_CROSS_DOCS,
+                                                LONG_CROSS_QUERIES)
+    out, shapes = {}, {}
+    # a batch with this few candidates would run as one block of the widest
+    # class present; without that floor it splits by class as a large one
+    # does, and the plain versions stay affordable on the CPU
+    chunk_min = pipeline.DEVICE_COVERAGE_CHUNK_MIN
+    pipeline.DEVICE_COVERAGE_CHUNK_MIN = 256
+    try:
+        for dev in ("cpu", "cuda"):
+            runtime.set_device(dev)
+            eng = build_engine(it, titles)
+            with BlockSpy(ck) as spy:
+                t0 = time.perf_counter()
+                out[dev] = flatten(
+                    run_batches(it, eng, short_q, len(short_q))
+                    + run_batches(it, eng, long_q, len(long_q)))
+                wall = time.perf_counter() - t0
+            shapes[dev] = dict(spy.blocks)
+            log(f"[long titles] {LONG_CROSS_DOCS} docs, {len(short_q)} + "
+                f"{len(long_q)} queries on {dev}: {wall:.1f} s; coverage "
+                f"blocks by (Q, L, D): {sorted(spy.blocks.items())}")
+    finally:
+        pipeline.DEVICE_COVERAGE_CHUNK_MIN = chunk_min
+        runtime.set_device("cuda")
+    check(len(shapes["cuda"]) == 6,
+          "long titles: the small corpus does not reach all six shapes")
+    bad = [q for q, x, y in zip(short_q + long_q, out["cpu"], out["cuda"])
+           if x != y]
+    check(not bad, f"long titles: CPU and CUDA differ on {len(bad)} queries, "
+          f"e.g. {bad[:3]}")
+    check(shapes["cpu"] == shapes["cuda"],
+          "long titles: other coverage blocks on the CPU than on the card")
+    check(sum(bool(r) for r in out["cuda"]) >= 0.9 * len(out["cuda"]),
+          "long titles: queries without hits")
+    log(f"[long titles] CPU and CUDA identical (ids and f32 scores) on all "
+        f"{len(out['cuda'])} queries")
+
+    titles, short_q, long_q = long_title_corpus(bench, LONG_DOCS, BATCH,
+                                                seed=78)
+    t0 = time.perf_counter()
+    eng = build_engine(it, titles)
+    build_s = time.perf_counter() - t0
+    _kernels.reset_launch_counts()
+    with BlockSpy(ck) as spy:
+        walls, results = [], []
+        for qs in (short_q, long_q):
+            t0 = time.perf_counter()
+            results += eng.search_batch([it.Query(q, 10) for q in qs])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    counts = dict(_kernels.launch_counts)
+    n_blocks = sum(spy.blocks.values())
+    found = check_results(results, LONG_DOCS, "long-title batch")
+    log(f"[long titles] {LONG_DOCS} docs indexed in {build_s:.1f} s; two "
+        f"batches of {BATCH} (1-4 and 5-8 query words) in "
+        f"{[round(w * 1e3, 1) for w in walls]} ms wall; {found}/"
+        f"{len(results)} with hits; {n_blocks} coverage blocks by (Q, L, D): "
+        f"{sorted(spy.blocks.items())}; kernel launches {counts}")
+    check(found >= len(results) * 0.9, "long titles: queries without hits")
+    for d in (8, 16, 64):
+        check(any(shape[2] == d for shape in spy.blocks),
+              f"long titles: no coverage block of {d} doc tokens")
+    check(counts["coverage_cascade"] == n_blocks
+          and counts["coverage_pairs"] == 2 * n_blocks,
+          f"long titles: {counts} for {n_blocks} coverage blocks")
+    return spy, counts
+
+
+def pair_bound(args, distances: bool):
+    """(bytes, integer operations, live cells) the pair words of these
+    inputs need. Bytes: both length tensors and the validity in full, of
+    every word its chars plain and reversed (a word's length says that the
+    rest of its row is zeros, so an empty or absent word costs no chars),
+    and one int32 per cell written. Operations: a cell with two non-empty
+    words builds its masks (PAIR_OPS_FIXED), runs the "contains" automaton
+    over the doc word where that is at least as long (a compare per query
+    char and three more per doc char) and, with distances, sweeps a band of
+    7 over the doc word and a band of 5 over its prefix of q_len + 1 chars
+    and rescues five times (EDIT_OPS_FIXED)."""
+    qc3, _, qlens2, chars_t, _, lens, valid = args
     n_q, n_l, n_c = qc3.shape
     n_d = chars_t.shape[1]
     n_chars = int(qlens2.clamp(0, n_l).sum()) + int(lens.clamp(0, n_l).sum())
     nbytes = 4 * (qlens2.numel() + lens.numel() + 2 * n_chars
-                  + 5 * n_q * n_d * n_c)
+                  + n_q * n_d * n_c) + valid.numel()
     ql = qlens2[:, None, :].long()
     dl = lens[None].long().clamp(max=n_l)
     live = (ql > 0) & (dl > 0)
-    steps = 7 * dl + 5 * dl.minimum(ql + 1)
-    ops = int((steps * live).sum()) * EDIT_OPS_BAND \
-        + int(live.sum()) * EDIT_OPS_FIXED
-    return nbytes, ops, int(live.sum())
+    n_live = int(live.sum())
+    ops = n_live * PAIR_OPS_FIXED \
+        + int((dl * (ql + 3) * (live & (ql <= dl))).sum())
+    if distances:
+        steps = 7 * dl + 5 * dl.minimum(ql + 1)
+        ops += int((steps * live).sum()) * EDIT_OPS_BAND \
+            + n_live * EDIT_OPS_FIXED
+    return nbytes, ops, n_live
 
 
-def edit_phase(torch, it, eng, queries, _kernels):
-    """The edit-distance kernel against its plain version on the
-    candidates of a real batch's first coverage block, per shape class."""
+def in_turns(torch, plain_fn, kernel_fn, reps: int):
+    """(kernel ms, plain ms, the four turns' times): plain, kernel,
+    kernel, plain. Both functions have run before; a plain turn is one run
+    (thousands of launches each), a kernel turn ``reps`` runs."""
+    times = {"plain": [], "cuda": []}
+    for route in ("plain", "cuda", "cuda", "plain"):
+        times[route].append(
+            cuda_ms(torch, plain_fn, reps=1, warm=False) if route == "plain"
+            else cuda_ms(torch, kernel_fn, reps=reps))
+    return sum(times["cuda"]) / 2, sum(times["plain"]) / 2, times
+
+
+def kernel_blocks(bench_spy, long_spy, which: str):
+    """(label, origin, shape, args) of every block the two spies hold for
+    ``which`` ("pairs", "fpairs" or "cascade"): the bench batch's, then the
+    long-title batches'."""
+    out = []
+    for origin, spy in (("bench", bench_spy), ("long titles", long_spy)):
+        for shape, args in sorted(getattr(spy, which).items()):
+            out.append((f"{origin} {'x'.join(map(str, shape))}", origin,
+                        shape, args))
+    return out
+
+
+def pair_phase(torch, bench_spy, long_spy, _kernels):
+    """The pair kernel against its plain version on real coverage blocks:
+    the first block of every shape of a bench batch and of the long-title
+    batches, with distances (the coverage query tokens) and without (the
+    fusion query tokens)."""
     from infidex_tpu_torch.ops import coverage_kernel as ck
-    from infidex_tpu_torch.ops import editdistance_multi as ed
 
-    seen = {}
+    runs = []
+    for which, distances in (("pairs", True), ("fpairs", False)):
+        for label, origin, shape, args in kernel_blocks(bench_spy, long_spy,
+                                                        which):
+            def kernel_fn(args=args, distances=distances):
+                return ck.coverage_pairs(*args, distances=distances)
 
-    def spy(*args):
-        shape = (args[0].shape[0], args[0].shape[1], args[3].shape[1])
-        seen.setdefault(shape, args)
-        return ed.coverage_distances(*args)
+            def plain_fn(args=args, distances=distances):
+                return ck.coverage_pairs_plain(*args, distances)
 
-    ck.coverage_distances = spy
-    try:
-        eng.search_batch([it.Query(q, 10) for q in queries[:BATCH]])
-        torch.cuda.synchronize()
-    finally:
-        ck.coverage_distances = ed.coverage_distances
-    check(seen, "edit kernel phase: the batch ran no coverage block")
-    first = next(iter(seen.values()))
+            plain = plain_fn()
+            n0 = _kernels.launch_counts["coverage_pairs"]
+            k1, k2 = kernel_fn(), kernel_fn()
+            torch.cuda.synchronize()
+            check(_kernels.launch_counts["coverage_pairs"] - n0 == 2,
+                  "pair kernel phase: not one launch per call")
+            check(k1.dtype == torch.int32 and k1.shape == plain.shape
+                  and torch.equal(k1, plain),
+                  f"pair kernel ({label}, distances {distances}): differs "
+                  f"from the plain version")
+            check(torch.equal(k1, k2),
+                  f"pair kernel ({label}): two runs differ")
+            err = int((k1 - plain).abs().max())
+            del plain, k2
+            ms, plain_ms, times = in_turns(torch, plain_fn, kernel_fn,
+                                           reps=20)
+            runs.append((label, origin, shape, args, distances, kernel_fn,
+                         k1, err, ms, plain_ms, times))
+    dev = device_ms_each(torch, [r[5] for r in runs],
+                         "coverage_pairs_kernel", reps=20)
     out = {}
-    for name, shape in EDIT_CLASSES.items():
-        real = shape in seen
-        args = seen[shape] if real else widen_edit_args(torch, first, *shape)
-        plain = ed.coverage_distances_plain(*args)
-        n0 = _kernels.launch_counts["edit_distances"]
-        k1, k2 = ed.coverage_distances(*args), ed.coverage_distances(*args)
-        torch.cuda.synchronize()
-        check(_kernels.launch_counts["edit_distances"] - n0 == 2,
-              "edit kernel phase: not one launch per call")
-        err = 0
-        for what, a, b, c in zip(("dam1", "dam2", "pdam1", "pdam2", "pdam3"),
-                                 k1, k2, plain):
-            check(a.dtype == torch.int32 and a.shape == c.shape
-                  and torch.equal(a, c),
-                  f"edit kernel ({name}): {what} differs from the plain "
-                  f"version")
-            check(torch.equal(a, b), f"edit kernel ({name}): two runs differ")
-            err = max(err, int((a - c).abs().max()))
-        times = {"plain": [], "cuda": []}
-        for route in ("plain", "cuda", "cuda", "plain"):
-            fn = (ed.coverage_distances_plain if route == "plain"
-                  else ed.coverage_distances)
-            times[route].append(cuda_ms(torch, lambda: fn(*args),
-                                        reps=3 if route == "plain" else 20))
-        ms, plain_ms = sum(times["cuda"]) / 2, sum(times["plain"]) / 2
-        nbytes, ops, live = edit_bound(args)
+    for (label, origin, shape, args, distances, _, k1, err, ms, plain_ms,
+         times), dev_ms in zip(runs, dev):
+        nbytes, ops, live = pair_bound(args, distances)
         bound = bound_ms(nbytes, ops, INT32_PEAK)
         n_q, n_l, n_d = shape
         n_c = args[0].shape[2]
-        matched = int((k1[0] <= 1).sum())
-        log(f"[kernel] edit distances, {name} class "
-            f"({'a block of the batch' if real else 'its first block, zero-padded to the class'}"
-            f"; Q {n_q}, L {n_l}, D {n_d}, C {n_c}: {n_q * n_d * n_c} cells, "
-            f"{live} with two non-empty words, {matched} within distance "
-            f"1): bit-equal to the plain version on all five tensors, "
-            f"deterministic; kernel {ms:.4f} ms ({times['cuda']}), plain "
-            f"{plain_ms:.4f} ms ({times['plain']}); bound {bound[0]:.4f} ms "
-            f"by {bound[1]} ({nbytes} B, {ops} integer operations), "
-            f"{bound[0] / ms:.1%} of it"
-            + ("" if real else "; a padded class, whose bound is the "
-               "outputs of cells without words: no measure of the kernel"))
-        check(live > 0 and matched > 0,
-              f"edit kernel ({name}): the block exercises nothing")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound[0], bound_by=bound[1],
-                         bound_bytes=nbytes, bound_ops=ops, real=real,
-                         cells=n_q * n_d * n_c, live=live)
-    log(f"[kernel] coverage blocks of the batch by (Q, L, D): "
-        f"{sorted(seen)}")
+        related = int(((k1 & 63) != 0).sum())
+        near = int((((k1 >> 16) & 7) <= 1).sum()) if distances else 0
+        log(f"[kernel] pair words, {label}, "
+            f"{'with distances' if distances else 'relations only'} "
+            f"(S {n_q}, L {n_l}, D {n_d}, C {n_c}: {n_q * n_d * n_c} "
+            f"cells, {live} with two non-empty words, {related} with a "
+            f"relation, {near} within distance 1): bit-equal to the "
+            f"plain version, deterministic; kernel {dev_ms:.4f} ms on "
+            f"the device (profiler), {ms:.4f} ms a call back to back "
+            f"(events: {times['cuda']}), plain {plain_ms:.4f} ms "
+            f"({times['plain']}); bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({nbytes} B, {ops} integer operations), "
+            f"{bound[0] / dev_ms:.1%} of the device time")
+        check(live > 0 and related > 0 and (near > 0 or not distances),
+              f"pair kernel ({label}): the block exercises nothing")
+        out[f"{label} {'distances' if distances else 'relations'}"] = dict(
+            max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], bound_bytes=nbytes,
+            bound_ops=ops, origin=origin, shape=list(shape),
+            candidates=n_c, cells=n_q * n_d * n_c, live=live)
+    return out
+
+
+def cascade_bound(args):
+    """(bytes, integer operations, needed pairs) the cascade of these
+    inputs needs. Bytes: of each candidate the pair words of its real
+    (query token, doc token) pairs, four ints per real doc token (length,
+    offset, code, first char), three per real query token (length, sorted
+    index, first char), its two counts; and every output written once
+    (11 B per query-token slot, 8 B per candidate). Operations:
+    CASCADE_OPS_PAIR per real pair (each of the matchers reads a pair's
+    word and tests a few bits)."""
+    pairs, tok_count, qcount = args[0], args[5], args[9]
+    n_q, n_d, n_c = pairs.shape
+    n_tok = tok_count.long().clamp(0, n_d)
+    n_qt = qcount.long().clamp(0, n_q)
+    n_pairs = int((n_tok * n_qt).sum())
+    nbytes = 4 * (n_pairs + 4 * int(n_tok.sum()) + 3 * int(n_qt.sum())
+                  + 2 * n_c) + 11 * n_q * n_c + 8 * n_c
+    return nbytes, n_pairs * CASCADE_OPS_PAIR, n_pairs
+
+
+def cascade_phase(torch, bench_spy, long_spy, _kernels):
+    """The cascade kernel against its plain version on the same real
+    coverage blocks."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
+    names = ("term_matched", "term_has_whole", "term_has_joined",
+             "term_has_prefix", "term_first_pos", "word_hits", "cov_count")
+    runs = []
+    for label, origin, shape, args in kernel_blocks(bench_spy, long_spy,
+                                                    "cascade"):
+        def kernel_fn(args=args):
+            return ck.coverage_cascade(*args)
+
+        def plain_fn(args=args):
+            return ck.coverage_cascade_plain(*args)
+
+        plain = plain_fn()
+        n0 = _kernels.launch_counts["coverage_cascade"]
+        k1, k2 = kernel_fn(), kernel_fn()
+        torch.cuda.synchronize()
+        check(_kernels.launch_counts["coverage_cascade"] - n0 == 2,
+              "cascade kernel phase: not one launch per call")
+        err = 0.0
+        for what, a, b, c in zip(names, k1, k2, plain):
+            if what == "term_matched":       # f32: compared by its bits
+                a, b, c = (t.view(torch.int32) for t in (a, b, c))
+            elif what == "cov_count":        # the plain sum is int64
+                c = c.to(a.dtype)
+            check(a.dtype == c.dtype and a.shape == c.shape
+                  and torch.equal(a, c),
+                  f"cascade kernel ({label}): {what} differs from the plain "
+                  f"version")
+            check(torch.equal(a, b),
+                  f"cascade kernel ({label}): two runs differ in {what}")
+            err = max(err, float((a.double() - c.double()).abs().max()))
+        ms, plain_ms, times = in_turns(torch, plain_fn, kernel_fn, reps=20)
+        runs.append((label, origin, shape, args, kernel_fn, k1, err, ms,
+                     plain_ms, times))
+    dev = device_ms_each(torch, [r[4] for r in runs],
+                         "coverage_cascade_kernel", reps=20)
+    out = {}
+    for (label, origin, shape, args, _, k1, err, ms, plain_ms,
+         times), dev_ms in zip(runs, dev):
+        nbytes, ops, n_pairs = cascade_bound(args)
+        bound = bound_ms(nbytes, ops, INT32_PEAK)
+        n_q, n_l, n_d = shape
+        n_c = args[0].shape[2]
+        tm, whole, joined, prefix, _, hits, _ = k1
+        log(f"[kernel] cascade, {label} (Q {n_q}, D {n_d}, C {n_c}; "
+            f"{n_pairs} real pairs; {int(hits.sum())} word hits, "
+            f"{int(whole.sum())} whole, {int(joined.sum())} joined, "
+            f"{int((prefix & ~whole & ~joined).sum())} prefix, "
+            f"{int(((tm > 0) & ~whole & ~joined & ~prefix).sum())} other "
+            f"terms): every output equal to the plain version "
+            f"(term_matched bit for bit), deterministic; kernel "
+            f"{dev_ms:.4f} ms on the device (profiler), {ms:.4f} ms a call "
+            f"back to back (events: {times['cuda']}), plain {plain_ms:.4f} "
+            f"ms ({times['plain']}); bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({nbytes} B, {ops} integer operations), "
+            f"{bound[0] / dev_ms:.1%} of the device time")
+        check(int(hits.sum()) > 0, f"cascade kernel ({label}): no word hit")
+        out[label] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, bound_ms=bound[0],
+                          bound_by=bound[1], bound_bytes=nbytes,
+                          bound_ops=ops, origin=origin,
+                          shape=list(shape), candidates=n_c,
+                          real_pairs=n_pairs)
     return out
 
 
@@ -579,10 +875,13 @@ def main_phase(torch, it, eng, queries, _kernels):
     check(counts["stage1_scatter_lanes"] > 0,
           "main path: the lane kernel never launched")
     log(f"[main] {len(blocks)} coverage blocks in the 4 batches, "
-        f"{counts['edit_distances']} edit-distance launches")
-    check(counts["edit_distances"] == len(blocks) > 0,
-          f"main path: {counts['edit_distances']} edit-distance launches "
-          f"for {len(blocks)} coverage blocks")
+        f"{counts['coverage_pairs']} pair-kernel and "
+        f"{counts['coverage_cascade']} cascade-kernel launches")
+    check(counts["coverage_cascade"] == len(blocks) > 0
+          and counts["coverage_pairs"] == 2 * len(blocks),
+          f"main path: {counts['coverage_pairs']} pair and "
+          f"{counts['coverage_cascade']} cascade launches for "
+          f"{len(blocks)} coverage blocks")
     flat = [r for b in results for r in b]
     found = check_results(flat, N_DOCS, "search_batch")
     check(found >= len(flat) * 0.9,
@@ -1362,8 +1661,14 @@ def main(argv=None) -> int:
         f"{torch.cuda.memory_allocated()} B")
 
     k = timed("2 kernel", kernel_phase, torch, eng, queries, _kernels, lanes)
-    ek = timed("2 edit-distance kernel", edit_phase, torch, it, eng, queries,
-               _kernels)
+    bench_spy = first_block_args(torch, it, eng, queries)
+    long_spy, long_counts = timed("2 long titles", long_titles_phase, torch,
+                                  it, runtime, bench, _kernels)
+    pk2 = timed("2 pair kernel", pair_phase, torch, bench_spy, long_spy,
+                _kernels)
+    ck2 = timed("2 cascade kernel", cascade_phase, torch, bench_spy, long_spy,
+                _kernels)
+    del bench_spy, long_spy
     timed("3 cross-device", cross_device_phase, it, runtime, bench, _kernels)
     counts, resident = timed("4 main", main_phase, torch, it, eng, queries,
                              _kernels)
@@ -1385,7 +1690,7 @@ def main(argv=None) -> int:
     timed("10 facets", facets_phase, torch, it, bench)
     by_path = {"main": counts, "large vocabulary": vocab_counts,
                "segments": seg_counts, "pool scoring": pool_counts,
-               "sharded": shard_counts}
+               "sharded": shard_counts, "long titles": long_counts}
     log(f"[end] kernel launches by path: {by_path}; total "
         f"{time.perf_counter() - T_START:.1f} s")
     check("jax" not in sys.modules and not any(
@@ -1399,13 +1704,16 @@ def main(argv=None) -> int:
     # the large-vocabulary, pool-scoring and sharded paths 2 each, the
     # segments path 1
     batches = {"main": 4, "large vocabulary": 2, "segments": 1,
-               "pool scoring": 2, "sharded": 2}
+               "pool scoring": 2, "sharded": 2, "long titles": 2}
 
     def paths(name):
         return {p: c[name] for p, c in by_path.items()}
 
     def per_batch(name):
         return {p: c[name] / batches[p] for p, c in by_path.items()}
+
+    main_cascade = next(k for k, v in ck2.items() if v["origin"] == "bench")
+    main_pairs = main_cascade + " distances"
 
     print(json.dumps({"kernels": [{
         "name": "stage1_scatter_lanes", "route": "cuda",
@@ -1437,20 +1745,37 @@ def main(argv=None) -> int:
         "max_abs_err": pk["max_abs_err"], "ms": pk["ms"],
         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
         "bound_by": pk["bound_by"], "library_ms": None}, {
-        # the numbers of the small class, the one the main path's blocks
-        # are; every class under "by_class"
-        "name": "edit_distances", "route": "cuda",
-        "source": "infidex_tpu_torch/csrc/edit_distances.cu",
-        "replaces": "infidex_tpu/ops/coverage_kernel.py:640",
-        "launches": counts["edit_distances"],
-        "launches_per_batch": counts["edit_distances"] / 4,
-        "launches_by_path": paths("edit_distances"),
-        "launches_per_batch_by_path": per_batch("edit_distances"),
-        "max_abs_err": ek["small"]["max_abs_err"], "ms": ek["small"]["ms"],
-        "plain_ms": ek["small"]["plain_ms"],
-        "bound_ms": ek["small"]["bound_ms"],
-        "bound_by": ek["small"]["bound_by"], "library_ms": None,
-        "by_class": ek}]}), flush=True)
+        # the numbers of the bench batch's first block (the small class,
+        # the one the main path's blocks are), with distances; every block
+        # of the kernel phase under "by_block"
+        "name": "coverage_pairs", "route": "cuda",
+        "source": "infidex_tpu_torch/csrc/coverage_pairs.cu",
+        "replaces": "infidex_tpu/ops/coverage_kernel.py:466",
+        "launches": counts["coverage_pairs"],
+        "launches_per_batch": counts["coverage_pairs"] / 4,
+        "launches_by_path": paths("coverage_pairs"),
+        "launches_per_batch_by_path": per_batch("coverage_pairs"),
+        "max_abs_err": pk2[main_pairs]["max_abs_err"],
+        "ms": pk2[main_pairs]["ms"],
+        "device_ms": pk2[main_pairs]["device_ms"],
+        "plain_ms": pk2[main_pairs]["plain_ms"],
+        "bound_ms": pk2[main_pairs]["bound_ms"],
+        "bound_by": pk2[main_pairs]["bound_by"], "library_ms": None,
+        "by_block": pk2}, {
+        "name": "coverage_cascade", "route": "cuda",
+        "source": "infidex_tpu_torch/csrc/coverage_cascade.cu",
+        "replaces": "infidex_tpu/ops/coverage_kernel.py:689",
+        "launches": counts["coverage_cascade"],
+        "launches_per_batch": counts["coverage_cascade"] / 4,
+        "launches_by_path": paths("coverage_cascade"),
+        "launches_per_batch_by_path": per_batch("coverage_cascade"),
+        "max_abs_err": ck2[main_cascade]["max_abs_err"],
+        "ms": ck2[main_cascade]["ms"],
+        "device_ms": ck2[main_cascade]["device_ms"],
+        "plain_ms": ck2[main_cascade]["plain_ms"],
+        "bound_ms": ck2[main_cascade]["bound_ms"],
+        "bound_by": ck2[main_cascade]["bound_by"], "library_ms": None,
+        "by_block": ck2}]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

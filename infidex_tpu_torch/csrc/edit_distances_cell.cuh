@@ -1,10 +1,11 @@
-// One (query token, doc token, candidate) cell of the Stage-2 edit
-// distances: the arithmetic of csrc/edit_distances.cu, in a header of its
+// One (query token, doc token, candidate) cell of the Stage-2 pair words:
+// the arithmetic of csrc/coverage_pairs.cu (the five edit distances, then
+// further down the word relations packed beside them), in a header of its
 // own so that a host compiler can build the same code (the CPU tests
 // compile it with g++ and hold it against the plain PyTorch version; the
 // CUDA kernel includes it unchanged).
 //
-// edit_cell<L> computes, for one query word q (ql chars, reversed copy qr)
+// distances<L, LIVE> computes, for one query word q (ql chars, reversed copy qr)
 // and one doc word d (dl chars, reversed copy dr), both zero-padded to L
 // chars, what ops/editdistance_multi.py coverage_distances_plain computes
 // for that cell, bit for bit:
@@ -75,7 +76,7 @@ EDIT_HD int band_pick(const int (&row)[W], int of, int big) {
 // min(lev(q, d[:dlen[w]]), B + 1), with the plain version's init, its
 // i == 0 clamp, its validity mask 0 <= i <= ql and its overrides for
 // empty words.
-template <int L, int B, int NW>
+template <int L, int B, int NW, bool LIVE = true>
 EDIT_HD void band_sweep(const int (&q)[L], const int (&d)[L], int ql,
                         const int (&dlen)[NW], int (&dist)[NW]) {
   constexpr int W = 2 * B + 1;
@@ -92,7 +93,7 @@ EDIT_HD void band_sweep(const int (&q)[L], const int (&d)[L], int ql,
     dist[w] = band_pick<W>(row, of[w], BIG);  // stands where dlen[w] == 0
   }
   // an empty word's distance is overridden below: skip its sweep
-  if (ql > 0 && dmax > 0) {
+  if (LIVE && ql > 0 && dmax > 0) {
 #pragma unroll
     for (int j = 0; j < L; ++j) {
       if (j < dmax) {
@@ -184,25 +185,25 @@ EDIT_HD int rescue(int dist, int ql, int dlen, const Masks& m) {
   return len_ok ? result : no;
 }
 
-// One cell. q[l] = qc[l * q_stride], qr likewise; d[l] = dc[l * d_stride],
-// dr likewise (the tensors keep the candidate axis minor, so a cell's
-// chars are strided). Writes the five distances to out[0..4].
-template <int L>
-EDIT_HD void edit_cell(const int* qc, const int* qr, long long q_stride,
-                       const int* dc, const int* dr, long long d_stride,
-                       int ql, int dl, int (&out)[5]) {
+// Reads one cell's words: q[l] = qc[l * q_stride], qr likewise; d[l] =
+// dc[l * d_stride], dr likewise (the tensors keep the candidate axis minor,
+// so a cell's chars are strided), and builds the four position masks. A
+// cell with an empty word (LIVE false) reads no chars: its sweeps are
+// skipped, and every reader of a mask looks at no bit of it or is gated by
+// a comparison of the two lengths that fails. LIVE is a template argument
+// so that the compiler folds such a cell's zero words and masks away.
+template <int L, bool LIVE>
+EDIT_HD void load_words(const int* qc, const int* qr, long long q_stride,
+                        const int* dc, const int* dr, long long d_stride,
+                        int (&q)[L], int (&d)[L], Masks& m) {
   static_assert(L >= 1 && L <= 31, "a cell's positions must fit a 32-bit mask");
-  int q[L], d[L];
-  Masks m = {0u, 0u, 0u, 0u};
-  // a cell with an empty word reads no chars: its sweeps are skipped and
-  // no mask bit lies inside its empty scan range
-  const bool live = ql > 0 && dl > 0;
+  m = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int l = 0; l < L; ++l) {
-    q[l] = live ? qc[l * q_stride] : 0;
-    d[l] = live ? dc[l * d_stride] : 0;
+    q[l] = LIVE ? qc[l * q_stride] : 0;
+    d[l] = LIVE ? dc[l * d_stride] : 0;
   }
-  if (live) {
+  if (LIVE) {
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       const int d_next = l + 1 < L ? d[l + 1] : 0;
@@ -213,17 +214,113 @@ EDIT_HD void edit_cell(const int* qc, const int* qr, long long q_stride,
       m.rneq |= (qr[l * q_stride] != dr[l * d_stride] ? 1u : 0u) << l;
     }
   }
+}
+
+// The five distances of a cell whose words and masks are loaded.
+template <int L, bool LIVE>
+EDIT_HD void distances(const int (&q)[L], const int (&d)[L], int ql, int dl,
+                       const Masks& m, int (&out)[5]) {
   const int dl_a[1] = {dl};
   int lev3[1];
-  band_sweep<L, 3, 1>(q, d, ql, dl_a, lev3);
+  band_sweep<L, 3, 1, LIVE>(q, d, ql, dl_a, lev3);
   const int dl_w[3] = {imin(dl, ql), imin(dl, ql + 1),
                        imin(dl, imax(ql - 1, 0))};
   int levp[3];
-  band_sweep<L, 2, 3>(q, d, ql, dl_w, levp);
+  band_sweep<L, 2, 3, LIVE>(q, d, ql, dl_w, levp);
   out[0] = rescue<L, 1>(imin(lev3[0], 3), ql, dl, m);
   out[1] = rescue<L, 2>(lev3[0], ql, dl, m);
 #pragma unroll
   for (int w = 0; w < 3; ++w) out[2 + w] = rescue<L, 1>(levp[w], ql, dl_w[w], m);
+}
+
+// ---------------------------------------------------------------------------
+// The pair word: everything the coverage program needs about one (query
+// word, doc word) pair, in one int32 (ops/_kernels.py names the same bits).
+//
+//   bit 0  EQ        the words are equal
+//   bit 1  D_SW_Q    the doc word starts with the query word
+//   bit 2  D_EW_Q    the doc word ends with the query word
+//   bit 3  Q_EW_D    the query word ends with the doc word
+//   bit 4  D_CONT_Q  the doc word contains the query word
+//   bit 5  Q_SW_D    the query word starts with the doc word
+//   bits 8-12        length of the common prefix
+//   bits 16-30       dam1, dam2, pdam1, pdam2, pdam3, three bits each (each
+//                    is at most 4); zero in a word built without distances
+//
+// The six relations are those of ops/coverage_kernel.py
+// _pairwise_primitives and _q_startswith_d_t, each masked by the doc
+// token's validity; lengths are at most L, as the coverage tables write
+// them. They are reads of the masks the distances already need: "starts
+// with" and the prefix length look at the aligned mismatch mask below one
+// word's length, "ends with" at the reversed one; "contains" runs the
+// doc word through a Shift-And automaton over the query word's positions
+// (bit l of the state: q[0..l] ends here), which only a doc word at least
+// as long as the query word needs.
+constexpr int kPairPrefixShift = 8;
+constexpr int kPairDistShift = 16;
+
+template <int L>
+EDIT_HD bool contains(const int (&q)[L], const int (&d)[L], int ql, int dl) {
+  if (ql == 0) return true;       // the empty word, at shift 0
+  if (ql > dl) return false;
+  unsigned state = 0u, hit = 0u;
+  const unsigned last = 1u << (ql - 1);
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    if (k < dl) {
+      unsigned eq = 0u;           // bit l: q[l] == d[k]
+#pragma unroll
+      for (int l = 0; l < L; ++l) eq |= (q[l] == d[k] ? 1u : 0u) << l;
+      state = ((state << 1) | 1u) & eq;
+      hit |= state & last;
+    }
+  }
+  return hit != 0u;
+}
+
+// The pair word of one cell; LIVE says that both words are non-empty (the
+// kernel settles the other cells on a path of their own, see load_words).
+template <int L, bool DIST, bool LIVE>
+EDIT_HD int pair_word(const int* qc, const int* qr, long long q_stride,
+                      const int* dc, const int* dr, long long d_stride,
+                      int ql, int dl, bool valid) {
+  int q[L], d[L];
+  Masks m;
+  load_words<L, LIVE>(qc, qr, q_stride, dc, dr, d_stride, q, d, m);
+  const bool pre_q = (m.neq & low_bits(ql, L)) == 0u;
+  const bool pre_d = (m.neq & low_bits(dl, L)) == 0u;
+  const bool rpre_q = (m.rneq & low_bits(ql, L)) == 0u;
+  const bool rpre_d = (m.rneq & low_bits(dl, L)) == 0u;
+  const int both = imin(ql, dl);
+  const unsigned pm = m.neq & low_bits(both, L);
+  const int prefix = imin(pm != 0u ? first_bit(pm) : both, 31);
+  int word = prefix << kPairPrefixShift;
+  if (valid) {
+    // an empty query word is contained at shift 0; an empty doc word
+    // contains no other
+    const bool cont = LIVE ? contains<L>(q, d, ql, dl) : ql == 0;
+    word |= (dl == ql && pre_q ? 1 : 0) | (dl >= ql && pre_q ? 2 : 0) |
+            (dl >= ql && rpre_q ? 4 : 0) | (ql >= dl && rpre_d ? 8 : 0) |
+            (cont ? 16 : 0) | (ql >= dl && pre_d ? 32 : 0);
+  }
+  if (DIST) {
+    int dist[5];
+    distances<L, LIVE>(q, d, ql, dl, m, dist);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) word |= dist[k] << (kPairDistShift + 3 * k);
+  }
+  return word;
+}
+
+template <int L, bool DIST>
+EDIT_HD int pair_cell(const int* qc, const int* qr, long long q_stride,
+                      const int* dc, const int* dr, long long d_stride,
+                      int ql, int dl, bool valid) {
+  return ql > 0 && dl > 0
+             ? pair_word<L, DIST, true>(qc, qr, q_stride, dc, dr, d_stride,
+                                        ql, dl, valid)
+             : pair_word<L, DIST, false>(qc, qr, q_stride, dc, dr, d_stride,
+                                         ql, dl, valid);
 }
 
 }  // namespace edit

@@ -38,11 +38,23 @@ FUZZY_TILE = 512
 
 #: launches per kernel since the last reset (one per kernel launch)
 launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
-                 "pool_score": 0, "edit_distances": 0}
+                 "pool_score": 0, "coverage_pairs": 0, "coverage_cascade": 0}
 
-#: char widths ``csrc/edit_distances.cu`` is compiled for (the coverage
+#: char widths ``csrc/coverage_pairs.cu`` is compiled for (the coverage
 #: program's L_CAP_SMALL and L_MAX)
-EDIT_CHAR_WIDTHS = (12, 24)
+PAIR_CHAR_WIDTHS = (12, 24)
+#: doc-token widths ``csrc/coverage_cascade.cu`` is compiled for
+#: (D_CAP_SMALL, D_CAP_NARROW, D_MAX) and its widest query-token axis
+CASCADE_DOC_WIDTHS = (8, 16, 64)
+CASCADE_Q_MAX = 16
+
+#: The pair word of ``csrc/edit_distances_cell.cuh``: one int32 per (query
+#: token, doc token, candidate). Bits 0-5 are the relations EQ, D_SW_Q,
+#: D_EW_Q, Q_EW_D, D_CONT_Q, Q_SW_D; then the shift of the 5-bit
+#: common-prefix length and the shifts of the five 3-bit distances (dam1,
+#: dam2, pdam1, pdam2, pdam3).
+PAIR_PREFIX_SHIFT = 8
+PAIR_DIST_SHIFTS = (16, 19, 22, 25, 28)
 
 _lib = None
 _lock = threading.Lock()
@@ -112,9 +124,11 @@ def build(verbose: bool = False) -> float:
         lib.pool_score.argtypes = [p, p, p, p, p, i, i, i, p,
                                    ctypes.c_longlong, p, p, p, p, p]
         lib.pool_score.restype = i
-        lib.edit_distances.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p,
-                                       p, p, p]
-        lib.edit_distances.restype = i
+        lib.coverage_pairs.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p,
+                                       p]
+        lib.coverage_pairs.restype = i
+        lib.coverage_cascade.argtypes = [p] * 10 + [i] * 4 + [p] * 9
+        lib.coverage_cascade.restype = i
         lib.stage1_error_string.argtypes = [i]
         lib.stage1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -285,45 +299,120 @@ def pool_score(pool, pool_valid, term_starts, term_lens, term_idf,
     return out
 
 
-def edit_distances(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
-    """``csrc/edit_distances.cu``: the five Stage-2 Damerau distance
-    tensors of one coverage block (see ``ops/editdistance_multi.py
-    coverage_distances``). ``qc3``/``qr3`` int32 [Q, L, C], ``qlens2``
-    int32 [Q, C], ``chars_t``/``chars_rev_t`` int32 [L, D, C], ``lens``
-    int32 [D, C], all contiguous, L one of ``EDIT_CHAR_WIDTHS``. Returns
-    five int32 [Q, D, C] tensors. One launch."""
+def _check_nd(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if t.device != dev or t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype} on {dev}, got {t.dtype} "
+                        f"on {t.device}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: must be a contiguous tensor of shape "
+                         f"{tuple(shape)}, got {tuple(t.shape)}")
+
+
+def coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens, valid,
+                   distances: bool):
+    """``csrc/coverage_pairs.cu``: the pair words of one coverage block
+    (see ``ops/coverage_kernel.py coverage_pairs``). ``qc3``/``qr3`` int32
+    [S, L, C], ``qlens2`` int32 [S, C], ``chars_t``/``chars_rev_t`` int32
+    [L, D, C], ``lens`` int32 [D, C], ``valid`` bool [D, C], all
+    contiguous, L one of ``PAIR_CHAR_WIDTHS``, lengths at most L. Returns
+    int32 [S, D, C]: the relation bits and the common-prefix length, and
+    with ``distances`` the five Damerau distances. One launch."""
     dev = chars_t.device
     if dev.type != "cuda":
-        raise ValueError("edit_distances: CUDA tensors required")
+        raise ValueError("coverage_pairs: CUDA tensors required")
     n_l, n_d, n_c = chars_t.shape
-    n_q = qc3.shape[0]
-    for name, t, shape in (("qc3", qc3, (n_q, n_l, n_c)),
-                           ("qr3", qr3, (n_q, n_l, n_c)),
-                           ("qlens2", qlens2, (n_q, n_c)),
-                           ("chars_t", chars_t, (n_l, n_d, n_c)),
-                           ("chars_rev_t", chars_rev_t, (n_l, n_d, n_c)),
-                           ("lens", lens, (n_d, n_c))):
-        if t.device != dev or t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32 on {dev}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: must be a contiguous tensor of "
-                             f"shape {shape}")
-    if n_l not in EDIT_CHAR_WIDTHS:
-        raise ValueError(f"edit_distances: {n_l} chars per token, the "
-                         f"kernel is built for {EDIT_CHAR_WIDTHS}")
-    outs = tuple(torch.empty((n_q, n_d, n_c), dtype=torch.int32, device=dev)
-                 for _ in range(5))
-    if outs[0].numel() == 0:
-        return outs
+    n_s = qc3.shape[0]
+    i32 = torch.int32
+    for name, t, dt, shape in (("qc3", qc3, i32, (n_s, n_l, n_c)),
+                               ("qr3", qr3, i32, (n_s, n_l, n_c)),
+                               ("qlens2", qlens2, i32, (n_s, n_c)),
+                               ("chars_t", chars_t, i32, (n_l, n_d, n_c)),
+                               ("chars_rev_t", chars_rev_t, i32,
+                                (n_l, n_d, n_c)),
+                               ("lens", lens, i32, (n_d, n_c)),
+                               ("valid", valid, torch.bool, (n_d, n_c))):
+        _check_nd(name, t, dt, shape, dev)
+    if n_l not in PAIR_CHAR_WIDTHS:
+        raise ValueError(f"coverage_pairs: {n_l} chars per token, the "
+                         f"kernel is built for {PAIR_CHAR_WIDTHS}")
+    out = torch.empty((n_s, n_d, n_c), dtype=i32, device=dev)
+    if out.numel() == 0:
+        return out
     build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.edit_distances(
+        rc = _lib.coverage_pairs(
             qc3.data_ptr(), qr3.data_ptr(), qlens2.data_ptr(),
             chars_t.data_ptr(), chars_rev_t.data_ptr(), lens.data_ptr(),
-            n_q, n_l, n_d, n_c, *(o.data_ptr() for o in outs), stream)
+            valid.data_ptr(), n_s, n_l, n_d, n_c, int(bool(distances)),
+            out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError("edit_distances launch failed: "
+        raise RuntimeError("coverage_pairs launch failed: "
                            + _lib.stage1_error_string(rc).decode())
-    launch_counts["edit_distances"] += 1
+    launch_counts["coverage_pairs"] += 1
+    return out
+
+
+def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
+                     qlens2, qsorted2, qc3, qcount, config):
+    """``csrc/coverage_cascade.cu``: the Stage-2 matcher cascade of one
+    coverage block (see ``ops/coverage_kernel.py coverage_cascade``).
+    ``pairs`` int32 [Q, D, C] pair words with distances; ``lens``,
+    ``offsets``, ``codes``, ``first_char`` int32 [D, C]; ``tok_count``,
+    ``qcount`` int32 [C]; ``qlens2``, ``qsorted2`` int32 [Q, C]; ``qc3``
+    int32 [Q, L, C]; all contiguous, D one of ``CASCADE_DOC_WIDTHS``, Q at
+    most ``CASCADE_Q_MAX``. ``config`` is a ``CoverageConfig``. Returns
+    ``(term_matched f32 [Q, C], term_has_whole, term_has_joined,
+    term_has_prefix bool [Q, C], term_first_pos int32 [Q, C], word_hits,
+    cov_count int32 [C])``. One launch."""
+    dev = pairs.device
+    if dev.type != "cuda":
+        raise ValueError("coverage_cascade: CUDA tensors required")
+    n_q, n_d, n_c = pairs.shape
+    n_l = qc3.shape[1]
+    i32 = torch.int32
+    for name, t, shape in (("pairs", pairs, (n_q, n_d, n_c)),
+                           ("lens", lens, (n_d, n_c)),
+                           ("offsets", offsets, (n_d, n_c)),
+                           ("codes", codes, (n_d, n_c)),
+                           ("first_char", first_char, (n_d, n_c)),
+                           ("tok_count", tok_count, (n_c,)),
+                           ("qlens2", qlens2, (n_q, n_c)),
+                           ("qsorted2", qsorted2, (n_q, n_c)),
+                           ("qc3", qc3, (n_q, n_l, n_c)),
+                           ("qcount", qcount, (n_c,))):
+        _check_nd(name, t, i32, shape, dev)
+    if n_d not in CASCADE_DOC_WIDTHS or not 1 <= n_q <= CASCADE_Q_MAX \
+            or n_l < 1:
+        raise ValueError(f"coverage_cascade: Q {n_q}, D {n_d}: the kernel is "
+                         f"built for D in {CASCADE_DOC_WIDTHS} and Q up to "
+                         f"{CASCADE_Q_MAX}")
+    term_matched = torch.empty((n_q, n_c), dtype=torch.float32, device=dev)
+    flags = [torch.empty((n_q, n_c), dtype=torch.bool, device=dev)
+             for _ in range(3)]
+    first_pos = torch.empty((n_q, n_c), dtype=i32, device=dev)
+    word_hits = torch.empty((n_c,), dtype=i32, device=dev)
+    cov_count = torch.empty((n_c,), dtype=i32, device=dev)
+    outs = (term_matched, *flags, first_pos, word_hits, cov_count)
+    if n_c == 0:
+        return outs
+    build()
+    cfg = (ctypes.c_int * 9)(
+        config.min_word_size, config.levenshtein_max_word_size,
+        config.num_typos, config.min_length_one_typo,
+        config.min_length_two_typos, int(config.cover_whole_words),
+        int(config.cover_joined_words), int(config.cover_prefix_suffix),
+        int(config.cover_fuzzy_words))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.coverage_cascade(
+            pairs.data_ptr(), lens.data_ptr(), offsets.data_ptr(),
+            codes.data_ptr(), first_char.data_ptr(), tok_count.data_ptr(),
+            qlens2.data_ptr(), qsorted2.data_ptr(), qc3.data_ptr(),
+            qcount.data_ptr(), n_q, n_l, n_d, n_c, cfg,
+            *(o.data_ptr() for o in outs), stream)
+    if rc != 0:
+        raise RuntimeError("coverage_cascade launch failed: "
+                           + _lib.stage1_error_string(rc).decode())
+    launch_counts["coverage_cascade"] += 1
     return outs

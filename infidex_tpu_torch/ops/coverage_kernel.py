@@ -1,4 +1,5 @@
-"""Batched Stage-2/3 coverage + fusion scoring (plain PyTorch).
+"""Batched Stage-2/3 coverage + fusion scoring (PyTorch around two
+hand-written kernels).
 
 Port of ``infidex_tpu/ops/coverage_kernel.py``: all candidates of a query
 batch are scored in one program over char tensors that replaces the
@@ -16,11 +17,18 @@ capacities and the packed output are the reference's; each
 float reduction over the query-token axis is an explicit sequential sum,
 so the result does not depend on a library's reduction order.
 
-Eager PyTorch materialises what XLA fused: the largest intermediates are
-[Q, L, D, C] masks and the [W, Q, 3D, C] DP band of the prefix sweep. The
-candidate axis is therefore processed in blocks of ``ROW_BLOCK`` rows
-(candidates are scored independently), which bounds peak device memory
-whatever chunk size the pipeline dispatches.
+Two parts of step 1 are one kernel launch each on the card:
+``coverage_pairs`` (the word relations and edit distances of every (query
+token, doc token) pair, one packed int32 each) and ``coverage_cascade``
+(the four matchers over those words). For CPU tensors both take their
+plain PyTorch versions, ``coverage_pairs_plain`` and
+``coverage_cascade_plain``, with the same results bit for bit.
+
+Eager PyTorch materialises what XLA fused: the largest intermediates of
+the plain versions are [Q, L, D, C] masks and the [W, Q, 3D, C] DP band of
+the prefix sweep. The candidate axis is therefore processed in blocks of
+``ROW_BLOCK`` rows (candidates are scored independently), which bounds
+peak device memory whatever chunk size the pipeline dispatches.
 
 Candidates whose shapes exceed the static capacities (tokens > D, token
 chars > L, query tokens > Q) are flagged at table build and re-scored by
@@ -36,7 +44,8 @@ import numpy as np
 import torch
 
 from .. import runtime
-from .editdistance_multi import coverage_distances
+from . import _kernels
+from .editdistance_multi import coverage_distances_plain, unpack_distances
 from .editdistance_multi import first_true as _first
 
 # Static capacities
@@ -516,122 +525,101 @@ def _q_startswith_d_t(q_chars, q_lens, chars_t, lens, valid):
 
 
 # ======================================================================
-# The program
+# Pair words and the matcher cascade: two hand-written kernels on the card
+# (csrc/coverage_pairs.cu, csrc/coverage_cascade.cu), each with its plain
+# PyTorch version here.
 
 
-def _as_dev(x, dev, dtype=None) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(dev) if dtype is None else x.to(dev, dtype)
-    a = np.asarray(x)
-    if a.dtype == np.uint16 or dtype is not None:
-        a = a.astype(np.int32)
-    return _upload(a, dev)
+def pack_pairs(relations, prefix, distances=None) -> torch.Tensor:
+    """The pair word of ``_kernels.PAIR_*``: six relation tensors (bool
+    [S,D,C], in the order EQ, D_SW_Q, D_EW_Q, Q_EW_D, D_CONT_Q, Q_SW_D) in
+    bits 0-5, the common-prefix length from bit 8 and, when given, the five
+    distances (each at most 4) in three bits each from bit 16."""
+    word = prefix.to(_I32) << _kernels.PAIR_PREFIX_SHIFT
+    for bit, rel in enumerate(relations):
+        word = word | (rel.to(_I32) << bit)
+    if distances is not None:
+        for shift, dist in zip(_kernels.PAIR_DIST_SHIFTS, distances):
+            word = word | (dist << shift)
+    return word
 
 
-def coverage_fusion_batch(
-    word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
-    doc_tok_count, doc_adj_ws, doc_text_len,
-    text_ids,            # int32 [C] internal id whose text is scored
-    qsel,                # int32 [C] which query each candidate belongs to
-    q_chars, q_chars_rev,        # int32 [B, Q, L]
-    q_lens, q_idf, q_word_idf,   # [B, Q]
-    q_count,                     # int32 [B]
-    q_sorted,                    # int32 [B, Q] length-desc stable order
-    fq_chars, fq_chars_rev,      # int32 [B, FQ, L]
-    fq_lens,                     # int32 [B, FQ]
-    fq_count,                    # int32 [B]
-    fq_last_is_alpha,            # bool [B]
-    lcs_vals,            # f32 [C] (host LCS; 0 where device-computable)
-    base_scores,         # f32 [C]
-    query_len,           # int32 [B] (full query string lengths)
-    text_chars=None,     # [N, T] full-text chars (device fake-LCS)
-    lcs_ok_dev=None,     # bool [N]
-    q_text=None,         # uint16 [B, QT]
-    q_text_len=None,     # int32 [B]
-    q_lcs_tol=None,      # int32 [B] per-query error tolerance
-    q_lcs_ok=None,       # bool [B]
-    *,
-    config: CoverageConfig,
-) -> torch.Tensor:
-    """Score C candidates; returns packed f32 ``[2, C]`` (score,
-    tie<<16 | word_hits<<8 | lcs) when ``text_chars`` is given, else
-    ``[3, C]`` (score, tie, word_hits). Arguments other than the tables
-    may be numpy arrays; everything runs on the tables' device."""
-    dev = doc_tokens.device
-    tables = (word_chars, word_chars_rev, word_lens, doc_tokens,
-              doc_tok_offsets, doc_tok_count, doc_adj_ws, doc_text_len)
-    queries = tuple(_as_dev(x, dev) for x in (
-        q_chars, q_chars_rev, q_lens, q_idf, q_word_idf, q_count, q_sorted,
-        fq_chars, fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
-        query_len))
-    lcs = None
-    if text_chars is not None:
-        lcs = (text_chars, lcs_ok_dev, _as_dev(q_text, dev, _I32),
-               _as_dev(q_text_len, dev), _as_dev(q_lcs_tol, dev),
-               _as_dev(q_lcs_ok, dev))
-    rows = tuple(_as_dev(x, dev) for x in (text_ids, qsel, lcs_vals,
-                                           base_scores))
-    n = rows[0].shape[0]
-    outs = []
-    for lo in range(0, max(n, 1), ROW_BLOCK):
-        blk = tuple(r[lo:lo + ROW_BLOCK] for r in rows)
-        outs.append(_coverage_block(tables, queries, lcs, *blk,
-                                    config=config))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+def unpack_relations(pairs: torch.Tensor):
+    """``(EQ, D_SW_Q, D_EW_Q, Q_EW_D, D_CONT_Q, Q_SW_D, common_prefix)``
+    out of pair words: six bool tensors and one int32."""
+    rels = tuple((pairs & (1 << bit)) != 0 for bit in range(6))
+    return rels + ((pairs >> _kernels.PAIR_PREFIX_SHIFT) & 31,)
 
 
-def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
-                    base_scores, *, config: CoverageConfig) -> torch.Tensor:
-    (word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
-     doc_tok_count, doc_adj_ws, doc_text_len) = tables
-    (q_chars, q_chars_rev, q_lens, q_idf, q_word_idf, q_count, q_sorted,
-     fq_chars, fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
-     query_len) = queries
-    dev = doc_tokens.device
+def coverage_pairs_plain(q_chars, q_rev, q_lens, chars_t, chars_rev_t, lens,
+                         valid, distances: bool) -> torch.Tensor:
+    """Plain PyTorch version of ``coverage_pairs`` (same arguments, same
+    result bit for bit), on any device."""
+    eq, d_sw_q, d_ew_q, q_ew_d, d_cont_q, prefix = _pairwise_primitives(
+        q_chars, q_lens, q_rev, chars_t, chars_rev_t, lens, valid)
+    q_sw_d = _q_startswith_d_t(q_chars, q_lens, chars_t, lens, valid)
+    dists = coverage_distances_plain(
+        q_chars, q_rev, q_lens, chars_t, chars_rev_t, lens) \
+        if distances else None
+    return pack_pairs((eq, d_sw_q, d_ew_q, q_ew_d, d_cont_q, q_sw_d), prefix,
+                      dists)
+
+
+def coverage_pairs(q_chars, q_rev, q_lens, chars_t, chars_rev_t, lens, valid,
+                   distances: bool) -> torch.Tensor:
+    """One int32 pair word [S, D, C] per (query token, doc token,
+    candidate): the six word relations (masked by the doc token's
+    ``valid``), the common-prefix length and, with ``distances``, the five
+    Damerau distances of ``coverage_distances_plain``; see ``pack_pairs``.
+
+    ``q_chars``/``q_rev`` int32 [S, L, C], ``q_lens`` int32 [S, C];
+    ``chars_t``/``chars_rev_t`` int32 [L, D, C], ``lens`` int32 and
+    ``valid`` bool [D, C]; lengths at most L. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if chars_t.device.type == "cpu":
+        return coverage_pairs_plain(q_chars, q_rev, q_lens, chars_t,
+                                    chars_rev_t, lens, valid, distances)
+    return _kernels.coverage_pairs(q_chars, q_rev, q_lens, chars_t,
+                                   chars_rev_t, lens, valid, distances)
+
+
+def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
+                     qlens2, qsorted2, qc3, qcount, config):
+    """The Stage-2 matcher cascade over one block of candidates: whole
+    word -> joined word -> prefix/suffix -> fuzzy word, each query token
+    and each doc token consumed once.
+
+    ``pairs`` int32 [Q, D, C] pair words with distances; ``lens`` (0 where
+    the token is invalid), ``offsets``, ``codes`` (-1 padded),
+    ``first_char`` int32 [D, C]; ``tok_count``, ``qcount`` int32 [C];
+    ``qlens2``, ``qsorted2`` int32 [Q, C]; ``qc3`` int32 [Q, L, C].
+    Returns ``(term_matched f32 [Q, C], term_has_whole, term_has_joined,
+    term_has_prefix bool [Q, C], term_first_pos int32 [Q, C], word_hits
+    int32 [C], cov_count [C])``. CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if pairs.device.type == "cpu":
+        return coverage_cascade_plain(pairs, lens, offsets, codes, first_char,
+                                      tok_count, qlens2, qsorted2, qc3,
+                                      qcount, config)
+    return _kernels.coverage_cascade(pairs, lens, offsets, codes, first_char,
+                                     tok_count, qlens2, qsorted2, qc3, qcount,
+                                     config)
+
+
+def coverage_cascade_plain(pairs, lens, offsets, codes, first_char,
+                           tok_count, qlens2, qsorted2, qc3, qcount, config):
+    """Plain PyTorch version of ``coverage_cascade`` (same arguments, same
+    result: integers equal, ``term_matched`` bit for bit), on any device;
+    ``cov_count`` comes out int64 here."""
+    dev = pairs.device
     f32 = _F32
-    text_ids = text_ids.long()
-    qsel = qsel.long()
-    lcs_vals = lcs_vals.to(f32)
-    base_scores = base_scores.to(f32)
-    C = text_ids.shape[0]
-    Q = q_chars.shape[1]
-    FQ = fq_chars.shape[1]
-    L = q_chars.shape[2]
-    D = config.d_cap if config.d_cap else doc_tokens.shape[1]
-
-    # Per-candidate query views, C-minor.
-    qc3 = q_chars[qsel].permute(1, 2, 0).contiguous()          # [Q,L,C]
-    qr3 = q_chars_rev[qsel].permute(1, 2, 0).contiguous()
-    qlens2 = q_lens[qsel].T.contiguous()                       # [Q,C]
-    qidf2 = q_idf[qsel].T.contiguous()
-    qwidf2 = q_word_idf[qsel].T.contiguous()
-    qcount = q_count[qsel]                                     # [C]
-    qsorted2 = q_sorted[qsel].T.contiguous()                   # [Q,C]
-    fqc3 = fq_chars[qsel].permute(1, 2, 0).contiguous()        # [FQ,L,C]
-    fqr3 = fq_chars_rev[qsel].permute(1, 2, 0).contiguous()
-    fqlens2 = fq_lens[qsel].T.contiguous()                     # [FQ,C]
-    fqcount = fq_count[qsel]                                   # [C]
-    fq_alpha = fq_last_is_alpha[qsel]
-    qlen_c = query_len[qsel]                                   # [C]
-
-    # ---------------- gather doc data ---------------------------------
-    codes = doc_tokens[text_ids][:, :D].T.contiguous()          # [D,C]
-    tok_count = doc_tok_count[text_ids]                         # [C]
-    offsets = doc_tok_offsets[text_ids][:, :D].T.contiguous()   # [D,C]
-    adj_ws = doc_adj_ws[text_ids][:, :D].T.contiguous()         # [D,C]
-    text_len = doc_text_len[text_ids]                           # [C]
-    safe_codes = torch.clamp_min(codes, 0).long()
-    chars_t = word_chars[safe_codes][:, :, :L].permute(2, 0, 1)     # [L,D,C]
-    chars_rev_t = word_chars_rev[safe_codes][:, :, :L].permute(2, 0, 1)
-    lens = torch.where(codes >= 0, word_lens[safe_codes], 0)        # [D,C]
+    Q, D, C = pairs.shape
+    (EQ, D_SW_Q, D_EW_Q, Q_EW_D, D_CONT_Q, _Q_SW_D,
+     _cp) = unpack_relations(pairs)
+    dam1, dam2, pdam1, pdam2, pdam3 = unpack_distances(pairs)
 
     d_iota = _iota(D, dev)
     all_valid = (codes >= 0) & (d_iota[:, None] < tok_count[None])  # [D,C]
-    chars_t = torch.where(all_valid[None], chars_t, 0).contiguous()
-    chars_rev_t = torch.where(all_valid[None], chars_rev_t, 0).contiguous()
-    lens = torch.where(all_valid, lens, 0)
-    first_char = chars_t[0]                          # [D,C]
-
     cov = all_valid & (lens >= config.min_word_size)
     same = codes[:, None, :] == codes[None, :, :]            # [D,D',C]
     earlier = (d_iota[None, :] < d_iota[:, None])[:, :, None]
@@ -641,16 +629,6 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
 
     q_iota = _iota(Q, dev)
     q_valid = q_iota[:, None] < qcount[None]         # [Q,C]
-
-    # ---------------- precomputed pairwise primitives -------------------
-    (EQ, D_SW_Q, D_EW_Q, Q_EW_D, D_CONT_Q, _cp) = _pairwise_primitives(
-        qc3, qlens2, qr3, chars_t, chars_rev_t, lens, all_valid)
-    _Q_SW_D = _q_startswith_d_t(qc3, qlens2, chars_t, lens, all_valid)
-
-    # Edit distances: two banded sweeps and five Damerau rescues, one
-    # kernel launch on the card (ops/editdistance_multi.py).
-    dam1, dam2, pdam1, pdam2, pdam3 = coverage_distances(
-        qc3, qr3, qlens2, chars_t, chars_rev_t, lens)
 
     def first_true(mask):
         """mask [D,C] -> (any [C], first index [C])."""
@@ -894,6 +872,144 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
                 note_pos(term_first_pos, i, at(offsets, j), m)
                 q_active[i] &= ~m
                 d_active = set_at_false(d_active, j, m)
+    return (term_matched, term_has_whole, term_has_joined, term_has_prefix,
+            term_first_pos, word_hits, cov_count)
+
+
+# ======================================================================
+# The program
+
+
+def _as_dev(x, dev, dtype=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(dev) if dtype is None else x.to(dev, dtype)
+    a = np.asarray(x)
+    if a.dtype == np.uint16 or dtype is not None:
+        a = a.astype(np.int32)
+    return _upload(a, dev)
+
+
+def coverage_fusion_batch(
+    word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
+    doc_tok_count, doc_adj_ws, doc_text_len,
+    text_ids,            # int32 [C] internal id whose text is scored
+    qsel,                # int32 [C] which query each candidate belongs to
+    q_chars, q_chars_rev,        # int32 [B, Q, L]
+    q_lens, q_idf, q_word_idf,   # [B, Q]
+    q_count,                     # int32 [B]
+    q_sorted,                    # int32 [B, Q] length-desc stable order
+    fq_chars, fq_chars_rev,      # int32 [B, FQ, L]
+    fq_lens,                     # int32 [B, FQ]
+    fq_count,                    # int32 [B]
+    fq_last_is_alpha,            # bool [B]
+    lcs_vals,            # f32 [C] (host LCS; 0 where device-computable)
+    base_scores,         # f32 [C]
+    query_len,           # int32 [B] (full query string lengths)
+    text_chars=None,     # [N, T] full-text chars (device fake-LCS)
+    lcs_ok_dev=None,     # bool [N]
+    q_text=None,         # uint16 [B, QT]
+    q_text_len=None,     # int32 [B]
+    q_lcs_tol=None,      # int32 [B] per-query error tolerance
+    q_lcs_ok=None,       # bool [B]
+    *,
+    config: CoverageConfig,
+) -> torch.Tensor:
+    """Score C candidates; returns packed f32 ``[2, C]`` (score,
+    tie<<16 | word_hits<<8 | lcs) when ``text_chars`` is given, else
+    ``[3, C]`` (score, tie, word_hits). Arguments other than the tables
+    may be numpy arrays; everything runs on the tables' device."""
+    dev = doc_tokens.device
+    tables = (word_chars, word_chars_rev, word_lens, doc_tokens,
+              doc_tok_offsets, doc_tok_count, doc_adj_ws, doc_text_len)
+    queries = tuple(_as_dev(x, dev) for x in (
+        q_chars, q_chars_rev, q_lens, q_idf, q_word_idf, q_count, q_sorted,
+        fq_chars, fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
+        query_len))
+    lcs = None
+    if text_chars is not None:
+        lcs = (text_chars, lcs_ok_dev, _as_dev(q_text, dev, _I32),
+               _as_dev(q_text_len, dev), _as_dev(q_lcs_tol, dev),
+               _as_dev(q_lcs_ok, dev))
+    rows = tuple(_as_dev(x, dev) for x in (text_ids, qsel, lcs_vals,
+                                           base_scores))
+    n = rows[0].shape[0]
+    outs = []
+    for lo in range(0, max(n, 1), ROW_BLOCK):
+        blk = tuple(r[lo:lo + ROW_BLOCK] for r in rows)
+        outs.append(_coverage_block(tables, queries, lcs, *blk,
+                                    config=config))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
+                    base_scores, *, config: CoverageConfig) -> torch.Tensor:
+    (word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
+     doc_tok_count, doc_adj_ws, doc_text_len) = tables
+    (q_chars, q_chars_rev, q_lens, q_idf, q_word_idf, q_count, q_sorted,
+     fq_chars, fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
+     query_len) = queries
+    dev = doc_tokens.device
+    f32 = _F32
+    text_ids = text_ids.long()
+    qsel = qsel.long()
+    lcs_vals = lcs_vals.to(f32)
+    base_scores = base_scores.to(f32)
+    C = text_ids.shape[0]
+    Q = q_chars.shape[1]
+    FQ = fq_chars.shape[1]
+    L = q_chars.shape[2]
+    D = config.d_cap if config.d_cap else doc_tokens.shape[1]
+
+    # Per-candidate query views, C-minor.
+    qc3 = q_chars[qsel].permute(1, 2, 0).contiguous()          # [Q,L,C]
+    qr3 = q_chars_rev[qsel].permute(1, 2, 0).contiguous()
+    qlens2 = q_lens[qsel].T.contiguous()                       # [Q,C]
+    qidf2 = q_idf[qsel].T.contiguous()
+    qwidf2 = q_word_idf[qsel].T.contiguous()
+    qcount = q_count[qsel]                                     # [C]
+    qsorted2 = q_sorted[qsel].T.contiguous()                   # [Q,C]
+    fqc3 = fq_chars[qsel].permute(1, 2, 0).contiguous()        # [FQ,L,C]
+    fqr3 = fq_chars_rev[qsel].permute(1, 2, 0).contiguous()
+    fqlens2 = fq_lens[qsel].T.contiguous()                     # [FQ,C]
+    fqcount = fq_count[qsel]                                   # [C]
+    fq_alpha = fq_last_is_alpha[qsel]
+    qlen_c = query_len[qsel]                                   # [C]
+
+    # ---------------- gather doc data ---------------------------------
+    codes = doc_tokens[text_ids][:, :D].T.contiguous()          # [D,C]
+    tok_count = doc_tok_count[text_ids]                         # [C]
+    offsets = doc_tok_offsets[text_ids][:, :D].T.contiguous()   # [D,C]
+    adj_ws = doc_adj_ws[text_ids][:, :D].T.contiguous()         # [D,C]
+    text_len = doc_text_len[text_ids]                           # [C]
+    safe_codes = torch.clamp_min(codes, 0).long()
+    chars_t = word_chars[safe_codes][:, :, :L].permute(2, 0, 1)     # [L,D,C]
+    chars_rev_t = word_chars_rev[safe_codes][:, :, :L].permute(2, 0, 1)
+    lens = torch.where(codes >= 0, word_lens[safe_codes], 0)        # [D,C]
+
+    d_iota = _iota(D, dev)
+    all_valid = (codes >= 0) & (d_iota[:, None] < tok_count[None])  # [D,C]
+    chars_t = torch.where(all_valid[None], chars_t, 0).contiguous()
+    chars_rev_t = torch.where(all_valid[None], chars_rev_t, 0).contiguous()
+    lens = torch.where(all_valid, lens, 0)
+    first_char = chars_t[0]                          # [D,C]
+
+    q_iota = _iota(Q, dev)
+    q_valid = q_iota[:, None] < qcount[None]         # [Q,C]
+
+    # One pair word per (query token, doc token): the six relations, the
+    # common-prefix length and the five edit distances; then the matcher
+    # cascade over them. One kernel launch each on the card.
+    pairs = coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens,
+                           all_valid, distances=True)
+    (term_matched, term_has_whole, term_has_joined, term_has_prefix,
+     term_first_pos, word_hits, cov_count) = coverage_cascade(
+        pairs, lens, offsets, codes, first_char, tok_count, qlens2, qsorted2,
+        qc3, qcount, config)
+    dam2_q0 = (pairs[0] >> _kernels.PAIR_DIST_SHIFTS[1]) & 7     # [D,C]
+
+    def at_q(arr, qi):
+        """arr [Q,C] at per-candidate index qi [C] -> [C] (qi < Q)."""
+        return arr.gather(0, qi.long()[None])[0]
 
     # ================== device fake-LCS ================================
     # StringMetrics.cs:12-36 over the FULL normalized text: len(q) when q
@@ -996,7 +1112,7 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
     # ================== FusionSignalComputer ===========================
     sig = _fusion_signals(
         fqc3, fqr3, fqlens2, fqcount, fq_alpha,
-        dam2[0], chars_t, chars_rev_t, lens, adj_ws, all_valid,
+        dam2_q0, chars_t, chars_rev_t, lens, adj_ws, all_valid,
         tok_count, C, D, L, FQ, config)
     sig["_fq_count"] = fqcount
 
@@ -1033,10 +1149,10 @@ def _fusion_signals(fq_chars, fq_chars_rev, fq_lens, fq_count,
     fq_valid_vec = fq_iota[:, None] < fq_count[None, :]         # [FQ,C]
     have = (fq_count > 0) & (tok_count > 0)
 
-    (F_EQ, F_D_SW_Q, _F_D_EW_Q, _F_Q_EW_D, F_CONT, F_CP) = \
-        _pairwise_primitives(fq_chars, fq_lens, fq_chars_rev, chars_t,
-                             chars_rev_t, lens, all_valid)
-    F_Q_SW_D = _q_startswith_d_t(fq_chars, fq_lens, chars_t, lens, all_valid)
+    (F_EQ, F_D_SW_Q, _F_D_EW_Q, _F_Q_EW_D, F_CONT, F_Q_SW_D,
+     F_CP) = unpack_relations(coverage_pairs(
+         fq_chars, fq_chars_rev, fq_lens, chars_t, chars_rev_t, lens,
+         all_valid, distances=False))
 
     last_idx = torch.clamp_min(fq_count - 1, 0)                 # [C]
     last_oh2 = fq_iota[:, None] == last_idx[None, :]            # [FQ,C]

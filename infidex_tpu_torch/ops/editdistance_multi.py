@@ -13,11 +13,12 @@ semantics, so results are identical on any device.
 * ``damerau_rescue``: the reference CalculateDamerau transposition rescue
   (Metrics/LevenshteinDistance.cs:281-341) applied to clamped lev values.
 * ``batched_damerau_multi``: convenience wrapper (lev sweep + rescue).
-* ``coverage_distances``: the five Damerau distance tensors the coverage
-  program needs (two sweeps, five rescues). CUDA tensors launch the
-  hand-written kernel ``csrc/edit_distances.cu`` (one launch);
-  ``coverage_distances_plain`` composes the functions above and runs for
-  CPU tensors.
+* ``coverage_distances_plain``: the five Damerau distance tensors the
+  coverage program needs (two sweeps, five rescues), composed of the
+  functions above. It is the distance part of ``ops/coverage_kernel.py
+  coverage_pairs_plain``, which runs for CPU tensors; on the card the
+  hand-written kernel ``csrc/coverage_pairs.cu`` writes the distances into
+  the pair word, and ``unpack_distances`` reads them out of it.
 """
 
 from __future__ import annotations
@@ -248,8 +249,16 @@ def batched_damerau_multi(q_chars, q_lens, d_chars, d_lens,
 
 
 def coverage_distances_plain(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
-    """Plain PyTorch version of ``coverage_distances`` (same arguments,
-    same result bit for bit)."""
+    """``(dam1, dam2, pdam1, pdam2, pdam3)``, each int32 [Q, D, C]: every
+    query token against every doc token of each candidate, in plain
+    PyTorch (the pair kernel's distance fields hold the same values).
+
+    ``qc3``/``qr3`` int32 [Q, L, C] query chars and their reverse,
+    ``qlens2`` int32 [Q, C]; ``chars_t``/``chars_rev_t`` int32 [L, D, C]
+    doc chars (zero where the token is invalid), ``lens`` int32 [D, C].
+    ``dam1``/``dam2``: the Damerau distance clamped above 1 / 2;
+    ``pdam1..3``: the same at max distance 1 against the doc token's
+    prefix of ``q_len``, ``q_len + 1`` and ``q_len - 1`` chars."""
     L, D, _ = chars_t.shape
     # Sweep A (budget 3) gives exact min(lev, 4), shared by the md=1 and
     # md=2 Damerau values; sweep B stacks the three prefix-window variants
@@ -279,19 +288,7 @@ def coverage_distances_plain(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
     return dam1, dam2, pdam1, pdam2, pdam3
 
 
-def coverage_distances(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
-    """``(dam1, dam2, pdam1, pdam2, pdam3)``, each int32 [Q, D, C]: every
-    query token against every doc token of each candidate.
-
-    ``qc3``/``qr3`` int32 [Q, L, C] query chars and their reverse,
-    ``qlens2`` int32 [Q, C]; ``chars_t``/``chars_rev_t`` int32 [L, D, C]
-    doc chars (zero where the token is invalid), ``lens`` int32 [D, C].
-    ``dam1``/``dam2``: the Damerau distance clamped above 1 / 2;
-    ``pdam1..3``: the same at max distance 1 against the doc token's
-    prefix of ``q_len``, ``q_len + 1`` and ``q_len - 1`` chars. CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
-    if chars_t.device.type == "cpu":
-        return coverage_distances_plain(qc3, qr3, qlens2, chars_t,
-                                        chars_rev_t, lens)
-    return _kernels.edit_distances(qc3, qr3, qlens2, chars_t, chars_rev_t,
-                                   lens)
+def unpack_distances(pairs: torch.Tensor):
+    """``(dam1, dam2, pdam1, pdam2, pdam3)`` int32 out of pair words
+    (``_kernels.PAIR_DIST_SHIFTS``: three bits each)."""
+    return tuple((pairs >> shift) & 7 for shift in _kernels.PAIR_DIST_SHIFTS)

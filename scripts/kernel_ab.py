@@ -2,7 +2,7 @@
 one run.
 
     python3 scripts/kernel_ab.py [--old-csrc DIR] [--old-pool-csrc DIR]
-                                 [--out DIR] [--reps N]
+                                 [--old-edit-csrc DIR] [--out DIR] [--reps N]
 
 ``--old-csrc`` holds the earlier lane and match kernels
 (``stage1_lanes.cu`` and ``fuzzy_match.cu`` with the C interfaces of
@@ -11,7 +11,11 @@ rank-major table, the match kernel one block per token row), e.g.
 unpacked with ``git archive c7be62e infidex_tpu_torch/csrc``;
 ``--old-pool-csrc`` the earlier pool kernel (``pool_score.cu`` of commit
 430610c: one thread per slot, 21 global probes per term; same C
-interface as today's). Only the pairs whose directory is given run. The
+interface as today's); ``--old-edit-csrc`` the earlier edit-distance
+kernel (``edit_distances.cu`` and ``edit_distances_cell.cuh`` of commit
+ce4e9c9: one thread per (query token, doc token, candidate), five int32
+tensors out), e.g. ``git archive ce4e9c9 infidex_tpu_torch/csrc |
+tar -x --strip-components=2 -C build/old_edit``. Only the pairs whose directory is given run. The
 script builds the old sources with the same ``nvcc`` flags as the port's
 library, then, on one card:
 
@@ -22,6 +26,15 @@ library, then, on one card:
 * pool: the pools the card scores when two 128-query batches of that
   corpus are served with ``POOL_DEVICE="1"`` (chip_smoke.py phase 11's
   input).
+
+* edit: the first coverage block of every shape of the first 128-query
+  batch of bench.py's corpus and of chip_smoke.py's long-title batches
+  (phase 2's inputs): the earlier kernel's five distance tensors against
+  the pair kernel's one packed word (``csrc/coverage_pairs.cu``), whose
+  distance fields must equal them; the pair kernel does more (the six
+  relations and the prefix length), so its relations-only build is timed
+  beside it. Besides the times of calls in turns, each kernel's device
+  time alone (torch.profiler).
 
 The pool part also reports how long the narrowed ranges of the run's
 tiles are.
@@ -80,6 +93,68 @@ def build_old_pool(src_dir: str, out_dir: str):
                                p, p, p, p, p]
     lib.pool_score.restype = i
     return lib
+
+
+def build_old_edit(src_dir: str, out_dir: str):
+    """The earlier edit-distance kernel, bound with its C interface."""
+    lib = _nvcc_old(src_dir, ("edit_distances.cu",), out_dir,
+                    "libinfidex_edit_old.so")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.edit_distances.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p,
+                                   p, p]
+    lib.edit_distances.restype = i
+    return lib
+
+
+def old_edit(torch, lib, qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
+    n_l, n_d, n_c = chars_t.shape
+    n_q = qc3.shape[0]
+    outs = tuple(torch.empty((n_q, n_d, n_c), dtype=torch.int32,
+                             device=chars_t.device) for _ in range(5))
+    rc = lib.edit_distances(
+        qc3.data_ptr(), qr3.data_ptr(), qlens2.data_ptr(),
+        chars_t.data_ptr(), chars_rev_t.data_ptr(), lens.data_ptr(), n_q,
+        n_l, n_d, n_c, *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return outs
+
+
+def edit_ab(torch, cs, it, bench, runtime, eng, queries, lib,
+            reps: int) -> dict:
+    """The earlier edit kernel beside the pair kernel on real blocks: the
+    first coverage block of every shape of a bench batch and of
+    chip_smoke.py's long-title batches."""
+    from infidex_tpu_torch.ops import _kernels
+    from infidex_tpu_torch.ops import editdistance_multi as ed
+
+    bench_spy = cs.first_block_args(torch, it, eng, queries)
+    long_spy, _ = cs.long_titles_phase(torch, it, runtime, bench, _kernels)
+    out = {}
+    for label, _, shape, a in cs.kernel_blocks(bench_spy, long_spy, "pairs"):
+        old = old_edit(torch, lib, *a[:6])
+        new = ed.unpack_distances(_kernels.coverage_pairs(*a, True))
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(old, new))
+        times = in_turns(torch, cs, {
+            "old": lambda: old_edit(torch, lib, *a[:6]),
+            "new": lambda: _kernels.coverage_pairs(*a, True)}, reps)
+        # events around back-to-back calls hold the wrappers' host time
+        # where a kernel is shorter than that: the kernels alone, too
+        device = {
+            name: cs.device_ms_each(torch, [fn], kernel, reps)[0]
+            for name, fn, kernel in (
+                ("old", lambda: old_edit(torch, lib, *a[:6]),
+                 "edit_distances_kernel"),
+                ("new", lambda: _kernels.coverage_pairs(*a, True),
+                 "coverage_pairs_kernel"),
+                ("new_relations_only",
+                 lambda: _kernels.coverage_pairs(*a, False),
+                 "coverage_pairs_kernel"))}
+        out[label] = dict(shape=list(shape), candidates=int(a[0].shape[2]),
+                          bit_equal=bool(same), ms=times, device_ms=device)
+    return dict(bit_equal=all(v["bit_equal"] for v in out.values()),
+                by_block=out)
 
 
 def old_pool(torch, lib, pool, valid, starts, lens, idf, docs, weights,
@@ -253,6 +328,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc")
     ap.add_argument("--old-pool-csrc")
+    ap.add_argument("--old-edit-csrc")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -271,10 +347,14 @@ def main(argv=None) -> int:
     runtime.set_device("cuda")
     card = cs.nvidia_smi_line()
     _kernels.build()
-    if not (args.old_csrc or args.old_pool_csrc):
-        ap.error("give --old-csrc, --old-pool-csrc or both")
+    if not (args.old_csrc or args.old_pool_csrc or args.old_edit_csrc):
+        ap.error("give --old-csrc, --old-pool-csrc or --old-edit-csrc")
     result = dict(card=card, torch=torch.__version__)
     eng, queries = bench_engine(cs, it, bench)
+    if args.old_edit_csrc:
+        lib = build_old_edit(args.old_edit_csrc, args.out)
+        result["edit"] = edit_ab(torch, cs, it, bench, runtime, eng, queries,
+                                 lib, args.reps)
     if args.old_pool_csrc:
         lib = build_old_pool(args.old_pool_csrc, args.out)
         result["pool"] = pool_ab(torch, cs, it, eng, queries, lib, args.reps)

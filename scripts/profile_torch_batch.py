@@ -7,11 +7,16 @@ CUDA, warms up with two batches, then serves one batch under
 torch.profiler (CPU + CUDA activity: device kernel time, kernel count,
 idle share = 1 - device time / wall) and two more under cProfile (host
 time by function, pipeline threads included). Both are taken twice over,
-in turns: with the Stage-2 edit distances as the plain PyTorch
-composition (``coverage_distances_plain``, the path before the
-hand-written kernel) and as the kernel (``csrc/edit_distances.cu``), on
-the same batches. Prints a summary and writes the full tables to
-DIR/profile_torch_{plain,kernel}.txt and DIR/profile_host_{plain,kernel}.txt.
+in turns, on the same batches: with the matcher cascade of the coverage
+program as eager PyTorch (``coverage_cascade_plain`` over the pair words
+of the kernel: the route before ``csrc/coverage_cascade.cu``, "eager"),
+and with the kernels (``csrc/coverage_pairs.cu`` and
+``csrc/coverage_cascade.cu``, "kernel"). ``--with-plain-pairs`` adds a
+third route, "plain", whose pair words are eager PyTorch too. The route is
+swapped by rebinding the coverage module's two dispatchers, not by an
+option of the package. Prints the card's name and power limit and a
+summary, and writes the full tables to DIR/profile_torch_{route}.txt and
+DIR/profile_host_{route}.txt.
 """
 
 import argparse
@@ -29,7 +34,8 @@ sys.path.insert(0, ROOT)
 BATCH = 128
 #: functions whose cProfile rows the summary prints
 WATCH = ("_dispatch_chunk", "coverage_fusion_batch", "_coverage_block",
-         "coverage_distances", "coverage_distances_plain", "_dispatch_group",
+         "coverage_pairs", "coverage_pairs_plain", "coverage_cascade",
+         "coverage_cascade_plain", "_fusion_signals", "_dispatch_group",
          "_collect_group", "_device_collect", "stage1_scatter_lanes",
          "_assemble_prior")
 
@@ -38,6 +44,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("--with-plain-pairs", action="store_true",
+                    help="also profile the route whose pair words are "
+                         "eager PyTorch")
     args = ap.parse_args(argv)
 
     import torch
@@ -74,27 +83,39 @@ def main(argv=None):
           flush=True)
 
     from infidex_tpu_torch.ops import coverage_kernel as ck
-    from infidex_tpu_torch.ops import editdistance_multi as ed
 
-    routes = {"plain": ed.coverage_distances_plain,
-              "kernel": ed.coverage_distances}
+    kernels = (ck.coverage_pairs, ck.coverage_cascade)
+    routes = {"plain": (ck.coverage_pairs_plain, ck.coverage_cascade_plain),
+              "eager": (ck.coverage_pairs, ck.coverage_cascade_plain),
+              "kernel": kernels}
+
+    def take(route):
+        ck.coverage_pairs, ck.coverage_cascade = routes[route]
 
     def profiled(route):
-        ck.coverage_distances = routes[route]
+        take(route)
+        blocks = []
+        block = ck._coverage_block
+        ck._coverage_block = lambda *a, **k: blocks.append(1) or block(*a, **k)
         _kernels.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall = serve(batches[2])
+        ck._coverage_block = block
         ka = prof.key_averages()
         on_card = [e for e in ka if str(e.device_type).endswith("CUDA")]
         dev_s = sum(e.self_device_time_total for e in on_card) / 1e6
         n_kernels = sum(e.count for e in on_card)
-        print(f"[profiler, distances {route}] batch wall {wall * 1e3:.1f} ms; "
+        hand = {name: sum(e.self_device_time_total for e in on_card
+                          if name + "_kernel" in e.key) / 1e3
+                for name in ("coverage_pairs", "coverage_cascade")}
+        print(f"[profiler, {route}] batch wall {wall * 1e3:.1f} ms; "
               f"device kernel time {dev_s * 1e3:.1f} ms in {n_kernels} "
-              f"kernels; idle share {1 - dev_s / wall:.4f}; edit-distance "
-              f"launches {_kernels.launch_counts['edit_distances']}, "
-              f"{sum(e.self_device_time_total for e in on_card if 'edit_distances' in e.key) / 1e3:.3f}"
-              f" ms of device time", flush=True)
+              f"kernels; idle share {1 - dev_s / wall:.4f}; {len(blocks)} "
+              f"coverage blocks, {n_kernels / max(len(blocks), 1):.0f} "
+              f"kernels a block (Stage 1 included); hand-kernel launches "
+              f"{dict(_kernels.launch_counts)}, device ms of the pair and "
+              f"cascade kernels {hand}", flush=True)
         with open(os.path.join(args.out, f"profile_torch_{route}.txt"),
                   "w") as f:
             f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
@@ -102,7 +123,7 @@ def main(argv=None):
             f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40))
 
     def host_profiled(route):
-        ck.coverage_distances = routes[route]
+        take(route)
         pr = cProfile.Profile()
         t = time.perf_counter()
         pr.enable()
@@ -118,7 +139,7 @@ def main(argv=None):
         with open(os.path.join(args.out, f"profile_host_{route}.txt"),
                   "w") as f:
             f.write(f"two batches, wall {wall2:.3f} s\n{s.getvalue()}")
-        print(f"[cprofile, distances {route}] two batches in "
+        print(f"[cprofile, {route}] two batches in "
               f"{wall2 * 1e3:.1f} ms wall", flush=True)
         for (path, line, name), v in sorted(st.stats.items()):
             if name in WATCH:
@@ -126,13 +147,14 @@ def main(argv=None):
                       f"{v[1]}, cum {v[3] * 1e3:.1f} ms, self "
                       f"{v[2] * 1e3:.1f} ms")
 
+    extra = ("plain",) if args.with_plain_pairs else ()
     try:
-        for route in ("plain", "kernel", "kernel", "plain"):
+        for route in extra + ("eager", "kernel", "kernel", "eager"):
             profiled(route)
-        for route in ("plain", "kernel"):
+        for route in extra + ("eager", "kernel", "kernel", "eager"):
             host_profiled(route)
     finally:
-        ck.coverage_distances = ed.coverage_distances
+        ck.coverage_pairs, ck.coverage_cascade = kernels
 
 
 if __name__ == "__main__":

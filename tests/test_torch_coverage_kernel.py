@@ -8,6 +8,13 @@ batches), tests/test_device_lcs.py (device fake-LCS) and the multi-query
 part of tests/test_editdistance_device.py, over all three shape buckets
 (small: d_cap 8 at 12 chars, narrow: d_cap 16, wide: full width).
 
+The program reaches its two hand-written kernels' dispatchers
+(``coverage_pairs``, ``coverage_cascade``) once per block and call site; on
+the CPU those take the plain versions, so every comparison here holds the
+plain versions to the reference (tests/test_torch_cascade.py and
+tests/test_torch_editdistance.py hold the kernels' code to the plain
+versions).
+
 Held exactly: tiebreaker, word hits and LCS (every integer output) and all
 edit distances. The f32 fusion score may differ by 1 ulp on a few rows:
 XLA's CPU backend contracts multiply-adds of the fusion arithmetic into
@@ -31,6 +38,7 @@ from infidex_tpu.ops import coverage_kernel as ref
 from infidex_tpu.ops import editdistance_multi as ref_ed
 from infidex_tpu.utils.metrics import lcs as lcs_host
 from infidex_tpu_torch import convert, runtime
+from infidex_tpu_torch.ops import _kernels
 from infidex_tpu_torch.ops import coverage_kernel as port
 from infidex_tpu_torch.ops import editdistance_multi as port_ed
 
@@ -48,7 +56,7 @@ def _tables(j):
             j.doc_tok_offsets, j.doc_tok_count, j.doc_adj_ws, j.doc_text_len)
 
 
-def _setup(seed, n_docs=30, n_queries=8):
+def _setup(seed, n_docs=30, n_queries=8, first_queries=()):
     rng = random.Random(seed)
     tok = T.make_tokenizer()
     setup = CoverageSetup.create_default()
@@ -65,6 +73,7 @@ def _setup(seed, n_docs=30, n_queries=8):
     eng.set_document_metadata_cache(meta)
     encs = [e for e in (T._encode_query(eng, q.lower(), delims)
                         for q in T.make_queries(rng, 2 * n_queries)) if e]
+    encs = [T._encode_query(eng, q, delims) for q in first_queries] + encs
     # a fixed batch width keeps one compiled reference program per bucket
     encs = (encs * n_queries)[:n_queries]
     jt = ref.CoverageTables.build(lower, delims)
@@ -134,6 +143,45 @@ def test_coverage_fusion_batch_matches_reference(seed, bucket, with_lcs):
     _assert_close(want, got.numpy(), ~jt.overflow[args[0]])
 
 
+#: settings other than the default that the matcher cascade branches on
+VARIANTS = {
+    "one_typo": dict(num_typos=1),
+    "no_typos": dict(num_typos=0),
+    "long_words_only": dict(min_word_size=3, levenshtein_max_word_size=6,
+                            min_length_one_typo=4, min_length_two_typos=6),
+    "no_whole_no_joined": dict(cover_whole_words=False,
+                               cover_joined_words=False),
+    "no_prefix_no_fuzzy": dict(cover_prefix_suffix=False,
+                               cover_fuzzy_words=False),
+    "min_word_size_0": dict(min_word_size=0),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_coverage_fusion_batch_matches_reference_under_other_settings(variant):
+    """The cascade's branches on the typo budget, the matcher flags and the
+    word-size limits, held to the reference in the small bucket (the plain
+    cascade is what tests/test_torch_cascade.py holds the kernel's code
+    to, under these same settings)."""
+    rng, setup, lower, encs, jt, pt = _setup(
+        1, first_queries=("shewshenk", "star novimbar"))   # two typos each
+    d_cap, l_cap = BUCKETS["small"]
+    default = ref.CoverageConfig.from_setup(setup)._replace(d_cap=d_cap)
+    config = default._replace(**VARIANTS[variant])
+    args = _args(rng, encs, len(lower), l_cap)
+    la = _lcs_args(rng, len(encs))
+    want = ref.coverage_fusion_batch(*_tables(jt), *args, jt.text_chars,
+                                     jt.lcs_ok, *la, config=config)
+    got = port.coverage_fusion_batch(*_tables(pt), *args, pt.text_chars,
+                                     pt.lcs_ok, *la, config=config)
+    ok = ~jt.overflow[args[0]]
+    _assert_close(want, got.numpy(), ok)
+    # the setting changes what these inputs give: its branch was taken
+    usual = port.coverage_fusion_batch(*_tables(pt), *args, pt.text_chars,
+                                       pt.lcs_ok, *la, config=default)
+    assert not torch.equal(got[:, ok], usual[:, ok])
+
+
 def test_multi_query_batch_equals_single_calls():
     rng, setup, lower, encs, jt, pt = _setup(7, n_docs=24)
     config = ref.CoverageConfig.from_setup(setup)._replace(
@@ -169,6 +217,103 @@ def test_row_blocks_do_not_change_results(monkeypatch):
     blocked = port.coverage_fusion_batch(*_tables(pt), *args, pt.text_chars,
                                          pt.lcs_ok, *la, config=config)
     assert torch.equal(full, blocked)
+
+
+@pytest.mark.parametrize("bucket", sorted(BUCKETS))
+def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
+    """Per row block: one pair call with distances (the coverage query
+    tokens), one without (the fusion query tokens), one cascade call over
+    the first's words; the relations and the eager cascade are reached
+    through the plain versions only."""
+    rng, setup, lower, encs, jt, pt = _setup(5)
+    d_cap, l_cap = BUCKETS[bucket]
+    config = ref.CoverageConfig.from_setup(setup)._replace(d_cap=d_cap)
+    args = _args(rng, encs, len(lower), l_cap)
+    want = port.coverage_fusion_batch(*_tables(pt), *args, config=config)
+    calls = []
+    pairs, cascade = port.coverage_pairs, port.coverage_cascade
+    plain_pairs = port.coverage_pairs_plain
+
+    def pairs_spy(*a, distances):
+        out = pairs(*a, distances=distances)
+        calls.append(("pairs", distances, out))
+        return out
+
+    def cascade_spy(*a):
+        calls.append(("cascade", a[0], a[-1]))
+        return cascade(*a)
+
+    def plain_pairs_spy(*a):
+        calls.append(("plain pairs",))
+        return plain_pairs(*a)
+
+    monkeypatch.setattr(port, "coverage_pairs", pairs_spy)
+    monkeypatch.setattr(port, "coverage_cascade", cascade_spy)
+    monkeypatch.setattr(port, "coverage_pairs_plain", plain_pairs_spy)
+    monkeypatch.setattr(port, "ROW_BLOCK", 100)
+    n_blocks = -(-args[0].size // 100)
+    got = port.coverage_fusion_batch(*_tables(pt), *args, config=config)
+    assert torch.equal(got, want)
+    # the spied dispatchers are the only callers of the plain versions here
+    assert [c[0] for c in calls] == ["plain pairs", "pairs", "cascade",
+                                     "plain pairs", "pairs"] * n_blocks
+    for i in range(0, len(calls), 5):
+        _, (_, with_dist, words), (_, seen, cfg), _, (_, f_dist, f_words) = \
+            calls[i:i + 5]
+        assert with_dist is True and f_dist is False
+        assert seen is words and cfg == config
+        assert words.dtype == torch.int32 and (words >> 16).any()
+        assert not (f_words >> 16).any()
+    assert all(n == 0 for n in _kernels.launch_counts.values())
+
+
+def test_pair_words_round_trip():
+    """``pack_pairs`` / ``unpack_relations`` / ``unpack_distances`` are
+    inverse on every field's whole range."""
+    g = torch.Generator().manual_seed(3)
+    shape = (4, 8, 50)
+    rels = tuple(torch.randint(0, 2, shape, generator=g).bool()
+                 for _ in range(6))
+    prefix = torch.randint(0, 25, shape, generator=g, dtype=torch.int32)
+    dists = tuple(torch.randint(0, 5, shape, generator=g, dtype=torch.int32)
+                  for _ in range(5))
+    words = port.pack_pairs(rels, prefix, dists)
+    assert words.dtype == torch.int32 and (words >= 0).all()
+    *got_rels, got_prefix = port.unpack_relations(words)
+    assert all(torch.equal(a, b) for a, b in zip(got_rels, rels))
+    assert torch.equal(got_prefix, prefix)
+    assert all(torch.equal(a, b)
+               for a, b in zip(port_ed.unpack_distances(words), dists))
+    bare = port.pack_pairs(rels, prefix)
+    assert torch.equal(bare, words & 0xFFFF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket,with_lcs", CASES)
+def test_cuda_program_equals_cpu_program(bucket, with_lcs):
+    """The whole program on the card (pair and cascade kernels) against
+    the CPU (plain versions): bit-identical, one cascade and two pair
+    launches per row block."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    rng, setup, lower, encs, jt, pt = _setup(
+        4, n_queries=4 if bucket == "wide" else 8)
+    d_cap, l_cap = BUCKETS[bucket]
+    config = ref.CoverageConfig.from_setup(setup)._replace(d_cap=d_cap)
+    args = _args(rng, encs, len(lower), l_cap)
+    extra = ()
+    if with_lcs:
+        extra = (pt.text_chars, pt.lcs_ok) + _lcs_args(rng, len(encs))
+    want = port.coverage_fusion_batch(*_tables(pt), *args, *extra,
+                                      config=config)
+    on_card = [t.cuda() if isinstance(t, torch.Tensor) else t
+               for t in _tables(pt) + args + extra]
+    _kernels.reset_launch_counts()
+    got = port.coverage_fusion_batch(*on_card, config=config)
+    assert got.is_cuda and torch.equal(got.cpu().view(torch.int32),
+                                       want.view(torch.int32))
+    assert _kernels.launch_counts["coverage_cascade"] == 1
+    assert _kernels.launch_counts["coverage_pairs"] == 2
 
 
 def test_tables_match_reference_tables():

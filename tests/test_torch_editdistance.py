@@ -1,14 +1,22 @@
 """The Stage-2 edit distances of the port
-(infidex_tpu_torch/ops/editdistance_multi.py ``coverage_distances``) against
-the reference.
+(infidex_tpu_torch/ops/editdistance_multi.py ``coverage_distances_plain``)
+and the pair words that carry them beside the word relations
+(infidex_tpu_torch/ops/coverage_kernel.py ``coverage_pairs``) against the
+reference.
 
 * ``coverage_distances_plain`` against the JAX composition (the functions of
   infidex_tpu/ops/editdistance_multi.py called as
   infidex_tpu/ops/coverage_kernel.py:640-662 calls them, on the CPU): all
   five tensors exactly equal (integers, tolerance 0);
-* the CUDA kernel's per-cell code (csrc/edit_distances_cell.cuh, the header
-  csrc/edit_distances.cu includes), compiled for the host with g++ and run
-  over every cell, against the plain version: exactly equal;
+* the CUDA kernel's per-cell code (``pair_cell`` of
+  csrc/edit_distances_cell.cuh, the header csrc/coverage_pairs.cu includes),
+  compiled for the host with g++ and run over every cell, its distance
+  fields against the plain distances: exactly equal;
+* the plain word relations (``_pairwise_primitives``, ``_q_startswith_d_t``)
+  against the JAX functions of the same names, and the pair word's
+  packing: exactly equal;
+* the same code's whole pair word, with and without distances, against
+  ``coverage_pairs_plain``: exactly equal;
 * on a card, the kernel against the plain version: exactly equal.
 
 Inputs are made with numpy from a seed: words over a five-letter alphabet,
@@ -26,9 +34,11 @@ import numpy as np
 import pytest
 import torch
 
+from infidex_tpu.ops import coverage_kernel as ref_ck
 from infidex_tpu.ops import editdistance_multi as ref_ed
 from infidex_tpu_torch import runtime
 from infidex_tpu_torch.ops import _kernels
+from infidex_tpu_torch.ops import coverage_kernel as port_ck
 from infidex_tpu_torch.ops import editdistance_multi as port_ed
 
 runtime.set_device("cpu")
@@ -61,8 +71,8 @@ def _edit(rng, w, n_edits):
 
 
 def _inputs(seed, Q, D, L, case):
-    """numpy inputs of ``coverage_distances`` in the coverage program's
-    layout: chars zero-padded, reversed copies, lengths."""
+    """numpy inputs of ``coverage_distances_plain`` in the coverage
+    program's layout: chars zero-padded, reversed copies, lengths."""
     rng = np.random.default_rng(seed)
 
     def word(lo, hi):
@@ -163,6 +173,13 @@ def _reference(qc3, qr3, qlens2, chars_t, chars_rev_t, lens):
     return [np.asarray(x) for x in (dam1, dam2, pdam1, pdam2, pdam3)]
 
 
+def _pairs(fn, arrays):
+    """``fn`` (``coverage_pairs`` or its plain version) with distances on
+    ``_inputs`` arrays (or tensors), every doc token valid."""
+    tensors = [torch.as_tensor(a) for a in arrays]
+    return fn(*tensors, torch.ones_like(tensors[5], dtype=torch.bool), True)
+
+
 def _plain(arrays):
     return [t.numpy() for t in port_ed.coverage_distances_plain(
         *(torch.from_numpy(a) for a in arrays))]
@@ -182,8 +199,9 @@ def test_plain_distances_equal_the_reference(shape, case):
     for name, g, w in zip(NAMES, got, want):
         assert g.dtype == np.int32 and g.shape == (Q, D, C), name
         assert np.array_equal(g, w), name
-    # the dispatcher takes the plain version for CPU tensors
-    same = port_ed.coverage_distances(*(torch.from_numpy(a) for a in arrays))
+    # the dispatcher takes the plain version for CPU tensors: its pair
+    # words hold these distances
+    same = port_ed.unpack_distances(_pairs(port_ck.coverage_pairs, arrays))
     for g, s in zip(got, same):
         assert np.array_equal(g, s.numpy())
     # the case exercises the distances: not every cell is clamped
@@ -224,29 +242,34 @@ def test_known_distances():
 
 _HOST_LOOP = r"""
 #include "edit_distances_cell.cuh"
-template <int L>
-static void run(const int* qc, const int* qr, const int* ql, const int* dc,
-                const int* dr, const int* dl, int n_q, int n_d, int n_c,
-                int* out) {
-  const long long n = (long long)n_q * n_d * n_c;
+template <int L, bool DIST>
+static void run_pairs(const int* qc, const int* qr, const int* ql,
+                      const int* dc, const int* dr, const int* dl,
+                      const unsigned char* valid, int n_q, int n_d, int n_c,
+                      int* out) {
   for (int q = 0; q < n_q; ++q)
     for (int d = 0; d < n_d; ++d)
       for (int c = 0; c < n_c; ++c) {
         const long long q_at = (long long)q * L * n_c + c;
         const long long d_at = (long long)d * n_c + c;
-        int o[5];
-        edit::edit_cell<L>(qc + q_at, qr + q_at, n_c, dc + d_at, dr + d_at,
-                           (long long)n_d * n_c, ql[(long long)q * n_c + c],
-                           dl[d_at], o);
-        const long long i = ((long long)q * n_d + d) * n_c + c;
-        for (int k = 0; k < 5; ++k) out[k * n + i] = o[k];
+        out[((long long)q * n_d + d) * n_c + c] = edit::pair_cell<L, DIST>(
+            qc + q_at, qr + q_at, n_c, dc + d_at, dr + d_at,
+            (long long)n_d * n_c, ql[(long long)q * n_c + c], dl[d_at],
+            valid[d_at] != 0);
       }
 }
-extern "C" int edit_distances_host(const int* qc, const int* qr,
-    const int* ql, const int* dc, const int* dr, const int* dl, int n_q,
-    int n_l, int n_d, int n_c, int* out) {
-  if (n_l == 12) run<12>(qc, qr, ql, dc, dr, dl, n_q, n_d, n_c, out);
-  else if (n_l == 24) run<24>(qc, qr, ql, dc, dr, dl, n_q, n_d, n_c, out);
+extern "C" int coverage_pairs_host(const int* qc, const int* qr,
+    const int* ql, const int* dc, const int* dr, const int* dl,
+    const unsigned char* valid, int n_q, int n_l, int n_d, int n_c,
+    int with_distances, int* out) {
+  if (n_l == 12 && with_distances)
+    run_pairs<12, true>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+  else if (n_l == 12)
+    run_pairs<12, false>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+  else if (n_l == 24 && with_distances)
+    run_pairs<24, true>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+  else if (n_l == 24)
+    run_pairs<24, false>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
   else return 1;
   return 0;
 }
@@ -254,14 +277,14 @@ extern "C" int edit_distances_host(const int* qc, const int* qr,
 
 
 @pytest.fixture(scope="module")
-def host_cell(tmp_path_factory):
-    """csrc/edit_distances_cell.cuh compiled with g++ behind a loop over
-    the cells in the kernel's own addressing."""
+def host_lib(tmp_path_factory):
+    """csrc/edit_distances_cell.cuh compiled with g++ behind loops over
+    the cells in the kernels' own addressing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++")
-    tmp = tmp_path_factory.mktemp("edit_cell")
-    src, so = tmp / "cells.cpp", tmp / "libedit_cell.so"
+    tmp = tmp_path_factory.mktemp("pair_cell")
+    src, so = tmp / "cells.cpp", tmp / "libpair_cell.so"
     src.write_text(_HOST_LOOP)
     subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
                     os.path.join(os.path.dirname(_kernels.__file__), "..",
@@ -269,19 +292,30 @@ def host_cell(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.edit_distances_host.argtypes = [p] * 6 + [i] * 4 + [p]
-    lib.edit_distances_host.restype = i
+    lib.coverage_pairs_host.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.coverage_pairs_host.restype = i
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_cell(host_lib):
+    """``pair_cell`` over every cell, every doc token valid: the five
+    distance fields of its pair words."""
+    lib = host_lib
 
     def run(qc, qr, ql, dc, dr, dl):
         arrays = [np.ascontiguousarray(a, np.int32)
                   for a in (qc, qr, ql, dc, dr, dl)]
         n_q, n_l, n_c = arrays[0].shape
         n_d = arrays[3].shape[1]
-        out = np.full((5, n_q, n_d, n_c), -7, np.int32)
-        rc = lib.edit_distances_host(*(a.ctypes.data for a in arrays), n_q,
-                                     n_l, n_d, n_c, out.ctypes.data)
-        assert rc == 0
-        return list(out)
+        valid = np.ones((n_d, n_c), np.uint8)
+        out = np.full((n_q, n_d, n_c), -7, np.int32)
+        rc = lib.coverage_pairs_host(*(a.ctypes.data for a in arrays),
+                                     valid.ctypes.data, n_q, n_l, n_d, n_c, 1,
+                                     out.ctypes.data)
+        assert rc == 0 and (out >= 0).all()
+        return [t.numpy() for t in
+                port_ed.unpack_distances(torch.from_numpy(out))]
 
     return run
 
@@ -310,8 +344,130 @@ def test_kernel_cell_code_with_lengths_past_the_table(host_cell):
 def test_cpu_tensors_never_reach_the_kernel_wrapper():
     z = torch.zeros((1, 12, 1), dtype=torch.int32)
     with pytest.raises(ValueError):
-        _kernels.edit_distances(z, z, z[:, 0], z.permute(1, 0, 2).contiguous(),
-                                z.permute(1, 0, 2).contiguous(), z[:, 0])
+        _kernels.coverage_pairs(z, z, z[:, 0], z.permute(1, 0, 2).contiguous(),
+                                z.permute(1, 0, 2).contiguous(), z[:, 0],
+                                z[:, 0] > 0, True)
+
+
+# --- pair words: the relations beside the distances ------------------------
+
+REL_NAMES = ("EQ", "D_SW_Q", "D_EW_Q", "Q_EW_D", "D_CONT_Q", "Q_SW_D",
+             "common_prefix")
+
+
+def _pair_inputs(seed, Q, D, L, case):
+    """``_inputs`` plus the doc tokens' validity: a quarter invalid, and
+    (as in the coverage program) every empty doc token of the
+    ``empty_doc_tokens`` case."""
+    arrays = _inputs(seed, Q, D, L, case)
+    rng = np.random.default_rng(seed + 5)
+    valid = rng.integers(4, size=arrays[5].shape) > 0
+    if case == "empty_doc_tokens":
+        valid &= arrays[5] > 0
+    return arrays + (valid,)
+
+
+def _pairs_plain(arrays, distances):
+    return port_ck.coverage_pairs_plain(
+        *(torch.from_numpy(a) for a in arrays), distances)
+
+
+@pytest.fixture(scope="module")
+def host_pairs(host_lib):
+    """``pair_cell`` over every cell: the pair words."""
+
+    def run(arrays, distances):
+        arrays = [np.ascontiguousarray(a, np.uint8 if a.dtype == bool
+                                       else np.int32) for a in arrays]
+        n_q, n_l, n_c = arrays[0].shape
+        n_d = arrays[3].shape[1]
+        out = np.full((n_q, n_d, n_c), -7, np.int32)
+        rc = host_lib.coverage_pairs_host(
+            *(a.ctypes.data for a in arrays), n_q, n_l, n_d, n_c,
+            int(distances), out.ctypes.data)
+        assert rc == 0
+        return out
+
+    return run
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_relations_equal_the_reference(shape, case):
+    """``_pairwise_primitives`` and ``_q_startswith_d_t`` against the JAX
+    functions, and the pair word's fields against both."""
+    arrays = _pair_inputs(3000 + _seed(shape, case), *shape, case)
+    qc, qr, ql, dc, dr, dl, valid = (jnp.asarray(a) for a in arrays)
+    want = list(ref_ck._pairwise_primitives(qc, ql, qr, dc, dr, dl, valid))
+    want.insert(5, ref_ck._q_startswith_d_t(qc, ql, dc, dl, valid))
+    pairs = _pairs_plain(arrays, True)
+    assert pairs.dtype == torch.int32 and (pairs >= 0).all()
+    got = port_ck.unpack_relations(pairs)
+    for name, g, w in zip(REL_NAMES, got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), name
+    for name, g, w in zip(NAMES, port_ed.unpack_distances(pairs),
+                          _plain(arrays[:6])):
+        assert np.array_equal(g.numpy(), w), name
+    # without distances: the same relation fields, no distance bits
+    bare = _pairs_plain(arrays, False)
+    assert torch.equal(bare, pairs & 0xFFFF)
+    # the dispatcher takes the plain version for CPU tensors
+    assert torch.equal(pairs, port_ck.coverage_pairs(
+        *(torch.from_numpy(a) for a in arrays), True))
+    if case in ("equal_words", "one_transposition"):
+        assert got[0].any() and got[4].any()
+
+
+@pytest.mark.parametrize("distances", [True, False],
+                         ids=["with_distances", "relations_only"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_pair_cell_code_equals_the_plain_version(host_pairs, shape, case,
+                                                 distances):
+    arrays = _pair_inputs(4000 + _seed(shape, case), *shape, case)
+    got = host_pairs(arrays, distances)
+    want = _pairs_plain(arrays, distances).numpy()
+    bad = np.argwhere(got != want)
+    assert bad.size == 0, (bad[:5], got[tuple(bad[0])], want[tuple(bad[0])])
+
+
+def test_known_relations():
+    """Hand-checked pairs: 'abcd' against itself, a longer word that
+    starts with it, one that ends with it, one that contains it, its own
+    prefix and suffix, an unrelated word, an empty doc token and an
+    invalid one; and an empty query word."""
+    L, Q, D = 12, 4, 16
+    qc = np.zeros((Q, L, 1), np.int32)
+    qr, dc = qc.copy(), np.zeros((L, D, 1), np.int32)
+    dr = dc.copy()
+    ql, dl = np.zeros((Q, 1), np.int32), np.zeros((D, 1), np.int32)
+    valid = np.ones((D, 1), bool)
+    q = b"abcd"
+    words = [b"abcd", b"abcdxy", b"xyabcd", b"xabcdy", b"ab", b"cd", b"wxyz",
+             b"", b"abcd"]
+    valid[8] = False
+    qc[0, :4, 0], qr[0, :4, 0], ql[0, 0] = list(q), list(q[::-1]), 4
+    for d, w in enumerate(words):
+        dc[:len(w), d, 0], dr[:len(w), d, 0] = list(w), list(w[::-1])
+        dl[d, 0] = len(w)
+    valid[len(words):] = False
+    eq, d_sw_q, d_ew_q, q_ew_d, d_cont_q, q_sw_d, cp = (
+        t.numpy()[:, :len(words), 0] for t in port_ck.unpack_relations(
+            _pairs_plain((qc, qr, ql, dc, dr, dl, valid), False)))
+    t, f = True, False
+    assert eq[0].tolist() == [t, f, f, f, f, f, f, f, f]
+    assert d_sw_q[0].tolist() == [t, t, f, f, f, f, f, f, f]
+    assert d_ew_q[0].tolist() == [t, f, t, f, f, f, f, f, f]
+    assert q_ew_d[0].tolist() == [t, f, f, f, f, t, f, t, f]
+    assert d_cont_q[0].tolist() == [t, t, t, t, f, f, f, f, f]
+    assert q_sw_d[0].tolist() == [t, f, f, f, t, f, f, t, f]
+    assert cp[0].tolist() == [4, 4, 0, 0, 2, 0, 0, 0, 4]
+    # the empty query word: starts, ends and is contained in every valid
+    # doc word, equals the empty one
+    assert eq[1].tolist() == [f, f, f, f, f, f, f, t, f]
+    assert d_sw_q[1].tolist() == d_cont_q[1].tolist() == [t] * 8 + [f]
+    assert q_sw_d[1].tolist() == [f] * 7 + [t, f]
+    assert not cp[1].any()
 
 
 @pytest.mark.gpu
@@ -323,10 +479,11 @@ def test_cuda_kernel_matches_plain_version(shape, case):
     arrays = _inputs(2000 + _seed(shape, case), *shape, case)
     want = _plain(arrays)
     cuda = [torch.from_numpy(a).cuda() for a in arrays]
-    n0 = _kernels.launch_counts["edit_distances"]
-    got = [port_ed.coverage_distances(*cuda) for _ in range(2)]
+    n0 = _kernels.launch_counts["coverage_pairs"]
+    got = [port_ed.unpack_distances(_pairs(port_ck.coverage_pairs, cuda))
+           for _ in range(2)]
     torch.cuda.synchronize()
-    assert _kernels.launch_counts["edit_distances"] == n0 + 2
+    assert _kernels.launch_counts["coverage_pairs"] == n0 + 2
     for outs in got:
         for name, g, w in zip(NAMES, outs, want):
             assert np.array_equal(g.cpu().numpy(), w), name
@@ -334,4 +491,23 @@ def test_cuda_kernel_matches_plain_version(shape, case):
     bad = [t[:, :8].contiguous() if t.dim() == 3 and t.shape[1] in (12, 24)
            else (t[:8].contiguous() if t.dim() == 3 else t) for t in cuda]
     with pytest.raises(ValueError):
-        port_ed.coverage_distances(*bad)
+        _pairs(port_ck.coverage_pairs, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("distances", [True, False],
+                         ids=["with_distances", "relations_only"])
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_pair_kernel_matches_plain_version(shape, case, distances):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    arrays = _pair_inputs(5000 + _seed(shape, case), *shape, case)
+    want = _pairs_plain(arrays, distances)
+    cuda = [torch.from_numpy(a).cuda() for a in arrays]
+    n0 = _kernels.launch_counts["coverage_pairs"]
+    got = [port_ck.coverage_pairs(*cuda, distances) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["coverage_pairs"] == n0 + 2
+    for g in got:
+        assert torch.equal(g.cpu(), want)
