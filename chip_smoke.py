@@ -22,14 +22,15 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      card (identical ids and scores), 20,000 on the card, whose coverage
      blocks are counted by shape (Q, L, D): the small, narrow and wide
      classes must all occur. Then the pair kernel (word relations and
-     edit distances in one packed word) and the cascade kernel (the four
-     matchers), each against its plain version on the first coverage block
-     of every shape of a bench batch and of the long-title batches: every
-     output equal (``term_matched`` bit for bit), two identical runs, one
-     launch per call, the kernel's device time (torch.profiler, one
-     session per kernel over all its blocks) and its CUDA-event time per
-     back-to-back call beside the bound and one run of the plain version
-     in each of two turns.
+     edit distances in one packed word), the cascade kernel (the four
+     matchers), the fake-LCS kernel and the fusion kernel (CoverageScorer,
+     fusion signals, FusionScorer and the pack), each against its plain
+     version on the first coverage block of every shape of a bench batch
+     and of the long-title batches: every output equal (f32 bit for bit),
+     two identical runs, one launch per call, the kernel's device time
+     (torch.profiler, one session per kernel over all its blocks) and its
+     CUDA-event time per back-to-back call beside the bound and one run of
+     the plain version in each of two turns.
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
      indexed and served once on the CPU and once on the card; ids and
      scores must be identical. Single ``search`` calls are compared the
@@ -39,7 +40,8 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
   4. Main path: ``search_batch`` on two batches of 128 bench queries and
      ``search_many`` over 256, with the kernels' launch counts reset just
      before and read just after; the lane kernel must have launched, the
-     cascade kernel once and the pair kernel twice per coverage block.
+     cascade, fake-LCS and fusion kernels once and the pair kernel twice
+     per coverage block.
      Prints per-batch wall ms, queries per second, device calls, host
      fallbacks, peak device memory and the top hit of a typo query.
   5. ``--recall``: recall@10 against the depth oracle (bench.py's
@@ -397,20 +399,23 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
 
 
 class BlockSpy:
-    """While active, records what the coverage program hands its two
-    kernels' dispatchers: per shape (Q, L, D) the arguments of the first
-    block's pair call with distances, of its relations-only pair call (the
-    fusion signals' query tokens) and of its cascade call, and how many
-    blocks ran per shape."""
+    """While active, records what the coverage program hands its kernels'
+    dispatchers: per shape (Q, L, D) the arguments of the first block's
+    pair call with distances, of its relations-only pair call (the fusion
+    signals' query tokens), of its cascade, fake-LCS and fusion calls, and
+    how many blocks ran per shape."""
 
     def __init__(self, ck):
         self.ck = ck
         self.pairs, self.fpairs, self.cascade, self.blocks = {}, {}, {}, {}
+        self.lcs, self.fusion = {}, {}
+        self._block = threading.local()    # the shape of the block running
 
     def __enter__(self):
         ck = self.ck
-        self._orig = ck.coverage_pairs, ck.coverage_cascade
-        orig_pairs, orig_cascade = self._orig
+        self._orig = (ck.coverage_pairs, ck.coverage_cascade, ck.coverage_lcs,
+                      ck.coverage_fusion)
+        orig_pairs, orig_cascade, orig_lcs, orig_fusion = self._orig
 
         def pairs_spy(*args, distances):
             shape = (args[0].shape[0], args[0].shape[1], args[3].shape[1])
@@ -419,15 +424,27 @@ class BlockSpy:
 
         def cascade_spy(*args):
             shape = (args[0].shape[0], args[8].shape[1], args[0].shape[1])
+            self._block.shape = shape
             self.cascade.setdefault(shape, args)
             self.blocks[shape] = self.blocks.get(shape, 0) + 1
             return orig_cascade(*args)
 
-        ck.coverage_pairs, ck.coverage_cascade = pairs_spy, cascade_spy
+        def lcs_spy(*args):
+            self.lcs.setdefault(self._block.shape, args)
+            return orig_lcs(*args)
+
+        def fusion_spy(*args, packed_lcs):
+            shape = (args[1].shape[0], args[3][0].shape[0], args[1].shape[1])
+            self.fusion.setdefault(shape, args + (packed_lcs,))
+            return orig_fusion(*args, packed_lcs=packed_lcs)
+
+        (ck.coverage_pairs, ck.coverage_cascade, ck.coverage_lcs,
+         ck.coverage_fusion) = pairs_spy, cascade_spy, lcs_spy, fusion_spy
         return self
 
     def __exit__(self, *exc):
-        self.ck.coverage_pairs, self.ck.coverage_cascade = self._orig
+        (self.ck.coverage_pairs, self.ck.coverage_cascade,
+         self.ck.coverage_lcs, self.ck.coverage_fusion) = self._orig
 
 
 def first_block_args(torch, it, eng, queries):
@@ -549,7 +566,8 @@ def long_titles_phase(torch, it, runtime, bench, _kernels):
     for d in (8, 16, 64):
         check(any(shape[2] == d for shape in spy.blocks),
               f"long titles: no coverage block of {d} doc tokens")
-    check(counts["coverage_cascade"] == n_blocks
+    check(counts["coverage_cascade"] == counts["coverage_lcs"]
+          == counts["coverage_fusion"] == n_blocks
           and counts["coverage_pairs"] == 2 * n_blocks,
           f"long titles: {counts} for {n_blocks} coverage blocks")
     return spy, counts
@@ -599,8 +617,8 @@ def in_turns(torch, plain_fn, kernel_fn, reps: int):
 
 def kernel_blocks(bench_spy, long_spy, which: str):
     """(label, origin, shape, args) of every block the two spies hold for
-    ``which`` ("pairs", "fpairs" or "cascade"): the bench batch's, then the
-    long-title batches'."""
+    ``which`` ("pairs", "fpairs", "cascade", "lcs" or "fusion"): the bench
+    batch's, then the long-title batches'."""
     out = []
     for origin, spy in (("bench", bench_spy), ("long titles", long_spy)):
         for shape, args in sorted(getattr(spy, which).items()):
@@ -765,6 +783,384 @@ def cascade_phase(torch, bench_spy, long_spy, _kernels):
     return out
 
 
+def lcs_bound(args):
+    """(bytes, integer operations, eligible candidates, bytes by input)
+    the fake-LCS of these inputs needs, each input read once. Bytes: per candidate its doc
+    id and query index (int64), its doc's flag, its text length where it is
+    eligible and its host value where not, and its result; per query row
+    that a candidate with an eligible doc selects its flag, and per row of
+    an eligible candidate its length and tolerance; per doc and per query
+    row the chars that the compares of its eligible candidates reach: each
+    offset's compare up to its first mismatch, the offsets up to the first
+    containment, and the common prefix up to the char that ends it where
+    there is none. Operations: one per char compared."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    (text_chars, lcs_ok, q_text, q_text_len, _, q_ok, text_ids, qsel,
+     text_len, _) = (a.cpu() for a in args)
+    ids, sel = text_ids.long().numpy(), qsel.long().numpy()
+    doc_ok = lcs_ok.numpy()[ids]
+    eligible = doc_ok & q_ok.numpy()[sel]
+    t_cap, qt_cap = text_chars.shape[1], q_text.shape[1]
+    tl, ql = text_len.numpy(), q_text_len.numpy()[sel]
+    rows, qrows = text_chars.numpy(), q_text.numpy()
+    ops = 0
+    text_read, query_read = {}, {}        # doc -> chars, query row -> chars
+    for c in eligible.nonzero()[0]:
+        d, b, t, q = int(ids[c]), int(sel[c]), int(tl[c]), int(ql[c])
+        if t <= 0 or q <= 0:
+            continue
+        nq = min(q, qt_cap)
+        o_end = min(t_cap, t - q + 1)     # offsets a containment may start at
+        query = qrows[b, :nq]
+        t_chars = q_chars = 0
+        hit = False
+        if o_end > 0:
+            padded = np.concatenate([rows[d], np.zeros(nq, rows.dtype)])
+            eq = sliding_window_view(padded, nq)[:o_end] == query
+            whole = eq.all(1)
+            if whole.any():
+                hit = True
+                eq = eq[:int(whole.argmax()) + 1]
+            n_read = np.where(eq.all(1), nq, eq.argmin(1) + 1)
+            ops += int(n_read.sum())
+            t_chars = int((np.arange(len(n_read)) + n_read).max())
+            q_chars = int(n_read.max())
+        if not hit:
+            n = min(qt_cap, q, t)
+            neq = rows[d, :n] != query[:n]
+            pre_read = int(neq.argmax()) + 1 if neq.any() else n
+            ops += pre_read
+            t_chars, q_chars = max(t_chars, pre_read), max(q_chars, pre_read)
+        text_read[d] = max(text_read.get(d, 0), min(t_chars, t_cap))
+        query_read[b] = max(query_read.get(b, 0), q_chars)
+    by_input = {
+        "per candidate": len(ids) * (8 + 8 + 1 + 4 + 4),
+        "query rows": len(np.unique(sel[doc_ok]))
+        + 8 * len(np.unique(sel[eligible])),
+        "text chars": 4 * sum(text_read.values()),
+        "query chars": 4 * sum(query_read.values())}
+    return sum(by_input.values()), ops, int(eligible.sum()), by_input
+
+
+#: operations the fusion kernel's bound counts per query slot of a real
+#: query token (the scorer's f32 arithmetic, its flags and the dominance
+#: pass) and per relation word read (a bit test and a branch); and one per
+#: char compared
+FUSION_OPS_SLOT, FUSION_OPS_WORD = 40, 2
+
+
+def _upto_first(hit, mask, dim):
+    """The elements of ``mask`` up to and including the first one along
+    ``dim`` where ``hit`` holds: what a loop that stops at its first hit
+    reads."""
+    h = (hit & mask).int()
+    return mask & (h.cumsum(dim) - h == 0)
+
+
+def _first_false(eq, dim, none):
+    """Index of the first false along ``dim``, ``none`` where all hold."""
+    ne = ~eq
+    return ne.int().argmax(dim).where(ne.any(dim), none)
+
+
+def fusion_reads(args):
+    """Bytes of each input that the scorer + fusion program of these
+    inputs reads, each element once: what csrc/coverage_fusion_cell.cuh's
+    loops reach before they stop on this data (the loops of the signals
+    stop at their first hit), and of the scorer's inputs what the function
+    needs (a query slot's state only for a real query token). Returns
+    (dict of bytes by input, char compares, real query slots, relation
+    words read)."""
+    import torch
+
+    (state, pairs, fq_pairs, doc, queries, qsel, lcs, _, config,
+     packed) = args
+    tm, hw, _, _, _, _, _ = (x.cpu() for x in state)
+    w = fq_pairs.cpu()                                   # [FQ, D, C]
+    p0 = pairs[0].cpu()
+    chars, rev, lens, adj, valid, tok, _ = (x.cpu() for x in doc)
+    (q_lens, q_idf, _, q_count, fq_chars, fq_rev, fq_lens, fq_count,
+     last_alpha, _) = (x.cpu() for x in queries)
+    sel = qsel.cpu().long()
+    n_l, n_d, n_c = chars.shape
+    n_q, n_fq = tm.shape[0], w.shape[0]
+    d_i, f_i = torch.arange(n_d)[:, None], torch.arange(n_fq)[:, None]
+    EQ, DSWQ, QSWD, DCONTQ = 1, 2, 32, 16
+    bits = lambda b: (w & b) != 0
+
+    # ---- CoverageScorer: a real token's slot, and the per-query rows
+    qc = q_count[sel]
+    ht = (torch.arange(n_q)[:, None] < qc[None]) & (q_lens[sel].T > 0)
+    ci = torch.where(ht, torch.clamp_max(
+        tm / torch.clamp_min(q_lens[sel].T.float(), 1.0), 1.0), 0.0)
+    matched = (ht & (ci > 0)).sum(0)
+    partial = (matched > 0) & (matched < qc)
+    out = {"state": int((10 * ht + (ht & ~hw)).sum()),
+           "scalars": n_c * (8 + 4 * 4) + 4 * int(partial.sum())
+           + (4 * n_c if config.cover_whole_query or packed else 0),
+           "result": 4 * n_c * (2 if packed else 3)}
+
+    # ---- the fusion signals, loop by loop
+    fqn = fq_count[sel]
+    have = (fqn > 0) & (tok > 0)
+    tokm = (d_i < tok.clamp(0, n_d)[None]) & have[None]          # [D, C]
+    rowm = (f_i < fqn.clamp(0, n_fq)[None]) & have[None]         # [FQ, C]
+    fql = fq_lens[sel].T                                        # [FQ, C]
+    fqc = fq_chars[sel].permute(1, 2, 0)                        # [FQ, L, C]
+    q0, q0_rev = fqc[0], fq_rev[sel].permute(1, 2, 0)[0]        # [L, C]
+    last = fqn - 1
+    last_ok = have & (last < n_fq)
+    last_c = last.clamp(0, n_fq - 1)
+    is_last = (f_i == last[None]) & last_ok[None]                # [FQ, C]
+    last_len = torch.where(last_ok, fql.gather(0, last_c[None])[0], 0)
+    single, multi = have & (fqn == 1), have & (fqn >= 2)
+    read_w = torch.zeros(w.shape, dtype=torch.bool)
+    read_valid = torch.zeros((n_d, n_c), dtype=torch.bool)
+    read_lens = torch.zeros_like(read_valid)
+    read_adj = torch.zeros_like(read_valid)
+    chars_ext = torch.zeros((n_d, n_c), dtype=torch.long)       # chars read
+    q0_ext = torch.zeros(n_c, dtype=torch.long)   # row 0 query chars read
+    compares = 0
+
+    # 1. prefix-last: one token, its row up to a doc word it starts; else
+    # each row before the last up to an equal word while every earlier row
+    # had one, and the last row up to a doc word it starts
+    read_w[0] |= _upto_first(bits(DSWQ)[0], tokm & single[None], 0)
+    before = (f_i < torch.minimum(fqn - 1, torch.tensor(n_fq))[None]) \
+        & multi[None]
+    row_eq = (bits(EQ) & tokm[None]).any(1) | ~before
+    prior = torch.cat([torch.ones((1, n_c), dtype=torch.int32),
+                       row_eq.int().cumprod(0)[:-1]]).bool()
+    read_w |= _upto_first(bits(EQ), tokm[None] & (before & prior)[:, None],
+                          1)
+    read_w |= _upto_first(bits(DSWQ), tokm[None] & (is_last & multi[None])
+                          [:, None], 1)
+    # 2. perfect doc: tokens up to the first valid one no row explains,
+    # each valid one's rows up to the first that does
+    expl = bits(DSWQ | QSWD)
+    explained = (expl & rowm[:, None]).any(0)
+    seen = _upto_first(valid & ~explained, tokm, 0)
+    read_valid |= seen
+    read_w |= _upto_first(expl, rowm[:, None] & (seen & valid)[None], 0)
+    # 3. stem evidence (two or more tokens): every word of the rows of long
+    # enough tokens; validity and length up to each row's first evidence
+    ms = config.min_word_size
+    stem_rows = rowm & multi[None] & (fql >= ms)
+    read_w |= stem_rows[:, None] & tokm[None]
+    ev = (valid & (lens >= ms))[None] & (bits(QSWD) | (((w >> 8) & 31) >= ms))
+    ev_seen = _upto_first(ev, stem_rows[:, None] & tokm[None], 1).any(0)
+    read_valid |= ev_seen
+    read_lens |= ev_seen & valid
+    # 4. anchor stem: tokens up to the first whose first three chars are
+    # the first token's, chars up to the first mismatch
+    anchor = have & (fql[0] >= 3)
+    read_lens[0] |= anchor
+    same3 = chars[:3] == q0[:3][:, None]                         # [3, D, C]
+    long3 = valid & (lens >= 3)
+    a_seen = _upto_first(long3 & same3.all(0),
+                         tokm & (anchor & (lens[0] >= 3))[None], 0)
+    read_valid |= a_seen
+    read_lens |= a_seen & valid
+    a_ext = torch.where(a_seen & long3,
+                        torch.clamp_max(_first_false(same3, 0, 3) + 1, 3), 0)
+    chars_ext = torch.maximum(chars_ext, a_ext)
+    q0_ext = torch.maximum(q0_ext, a_ext.amax(0))
+    compares += int(a_ext.sum())
+    # 5. trailing density: every word of the last row, the lengths where
+    # the doc word does not start with it
+    trail = tokm & (multi & (last_len >= 1) & (last_len <= 2))[None]
+    read_w |= is_last[:, None] & trail[None]
+    read_valid |= trail
+    w_last = w.gather(0, last_c[None, None].expand(1, n_d, n_c))[0]
+    read_lens |= trail & valid & ((w_last & DSWQ) == 0)
+    # 6. single-term similarity: the slide over the query's shifts, each
+    # compare up to its first mismatch, until neither result can change;
+    # the distance where no shift holds the doc word; the two segments
+    q_len = fql[0]
+    sim = tokm & (single & (q_len >= 3))[None]
+    read_valid |= sim
+    read_lens |= sim
+    live = sim & valid & (lens >= 2)
+    found = torch.full((n_d, n_c), -1)
+    best_k = torch.zeros((n_d, n_c), dtype=torch.long)
+    stopped = ~live
+    q0_slide = torch.zeros((n_d, n_c), dtype=torch.long)
+    for s in range(n_l):
+        k = (q_len - s)[None]
+        stopped |= (((found >= 0) | (s + lens > q_len[None]))
+                    & ((best_k > 0) | (k < 2)))
+        go = ~stopped
+        shifted = torch.zeros_like(q0)
+        shifted[:n_l - s] = q0[s:]
+        m = _first_false(shifted[:, None] == chars, 0, n_l)
+        n_read = torch.where(go, torch.clamp_max(m, n_l - 1) + 1, 0)
+        compares += int(n_read.sum())
+        chars_ext = torch.maximum(chars_ext, n_read)
+        q0_slide = torch.maximum(
+            q0_slide, torch.where(go, torch.clamp_max(s + n_read, n_l), 0))
+        found = torch.where(go & (found < 0) & (m >= lens.clamp_max(n_l))
+                            & (s + lens <= q_len[None]), s, found)
+        best_k = torch.where(go & (best_k == 0) & (k >= 2)
+                             & (k <= torch.minimum(q_len[None], lens))
+                             & (m >= k), k, best_k)
+    q0_ext = torch.maximum(q0_ext, q0_slide.amax(0))
+    read_p0 = live & (found < 0)
+    seg = torch.clamp_max(q_len // 2, 6)
+    two = sim & valid & (lens >= 3) & (q_len >= 6)[None]
+    m3 = torch.minimum(torch.minimum(seg[None], lens), torch.tensor(n_l))
+    pre = torch.where(two, torch.minimum(
+        _first_false(q0[:, None] == chars, 0, n_l) + 1, m3), 0)
+    suf = torch.where(two, torch.minimum(
+        _first_false(q0_rev[:, None] == rev, 0, n_l) + 1, m3), 0)
+    compares += int(pre.sum() + suf.sum())
+    chars_ext = torch.maximum(chars_ext, pre)
+    q0_ext = torch.maximum(q0_ext, pre.amax(0))
+    q0_rev_ext = suf.amax(0)
+    # 7. single-char boost: rows before the last in turn, each from the
+    # doc token the previous one matched up to a word containing it; then
+    # the next token's validity, first char, adjacency and length
+    boost = multi & (last_len == 1) & last_alpha[sel]
+    alive, d_at = boost.clone(), torch.zeros(n_c, dtype=torch.long)
+    cont = bits(DCONTQ)
+    for i in range(n_fq - 1):
+        go = alive & (i < fqn - 1)
+        span = tokm & (d_i >= d_at[None]) & go[None]
+        read_w[i] |= _upto_first(cont[i], span, 0)
+        hit = cont[i] & span
+        alive = torch.where(go, hit.any(0), alive)
+        d_at = torch.where(go & hit.any(0), hit.int().argmax(0), d_at)
+    nxt = d_at + 1
+    ok = alive & (nxt < n_d)
+    nxt_c = nxt.clamp_max(n_d - 1)[None]
+    at_nxt = (d_i == nxt[None]) & ok[None]
+    read_valid |= at_nxt
+    ok &= valid.gather(0, nxt_c)[0]
+    chars_ext = torch.where((d_i == nxt[None]) & ok[None],
+                            torch.clamp_min(chars_ext, 1), chars_ext)
+    boost_q = ok.clone()                  # the last token's char is read
+    ok &= chars[0].gather(0, nxt_c)[0] == fqc.gather(
+        0, last_c[None, None].expand(1, n_l, n_c))[0, 0]
+    read_adj |= (d_i == d_at[None]) & ok[None]
+    ok &= adj.gather(0, d_at[None])[0]
+    read_lens |= (d_i == nxt[None]) & ok[None]
+
+    out.update(fq_pairs=4 * int(read_w.sum()), pairs=4 * int(read_p0.sum()),
+               lens=4 * int(read_lens.sum()), valid=int(read_valid.sum()),
+               adj_ws=int(read_adj.sum()), chars=4 * int(chars_ext.sum()),
+               chars_rev=4 * int(suf.sum()))
+
+    # ---- the per-query tables, each row a candidate selects once
+    rows = torch.unique(sel)
+    qcr = q_count[rows]
+    htr = (torch.arange(n_q)[None] < qcr[:, None]) & (q_lens[rows] > 0)
+    last_q = (qcr - 1).clamp(0, n_q - 1)
+    n_idf = htr.sum(1) + ~htr.gather(1, last_q[:, None])[:, 0]
+    fqr = fq_count[rows]
+    multi_r = torch.where(fqr > 0, fqr, qcr) >= 2
+    n_widf = torch.where(multi_r & (qcr >= 2), htr.sum(1), 0)
+    n_b = q_count.shape[0]
+
+    def per_row(vals, mask):
+        """The largest of ``vals`` over each row's candidates where
+        ``mask``, summed over the rows."""
+        v = torch.where(mask, vals, 0).long()
+        return int(torch.zeros(n_b, dtype=torch.long).scatter_reduce(
+            0, sel, v, "amax").sum())
+
+    out.update(
+        query_rows=4 * int((qcr.clamp(0, n_q) + n_idf + n_widf).sum())
+        + 12 * len(rows) + 4 * per_row(fqn.clamp(0, n_fq), have)
+        + per_row(torch.ones(n_c), multi & (last_len == 1)),
+        fq_chars=4 * (per_row(q0_ext, have) + per_row(boost_q, boost_q)),
+        fq_chars_rev=4 * per_row(q0_rev_ext, have))
+    return out, compares, int(ht.sum()), int(read_w.sum())
+
+
+def fusion_bound(args):
+    """(bytes, operations, real fusion pairs, bytes by input) the scorer +
+    fusion program of these inputs needs: the bytes of ``fusion_reads``; FUSION_OPS_SLOT a
+    real query slot, FUSION_OPS_WORD a relation word read and one a char
+    compared. Real fusion pairs: (fusion token, doc token) pairs of real
+    tokens, what the block gives the signals to do."""
+    reads, compares, slots, words = fusion_reads(args)
+    fq_count, tok = args[4][7].cpu()[args[5].cpu().long()], args[3][5].cpu()
+    n_fq, n_d = args[2].shape[0], args[2].shape[1]
+    n_pairs = int((fq_count.clamp(0, n_fq) * tok.clamp(0, n_d)).sum())
+    ops = FUSION_OPS_SLOT * slots + FUSION_OPS_WORD * words + compares
+    return sum(reads.values()), ops, n_pairs, reads
+
+
+def fusion_phase(torch, bench_spy, long_spy, _kernels):
+    """The fake-LCS and fusion kernels against their plain versions on the
+    same real coverage blocks."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
+    out = {}
+    for name, which, plain, bound_of, kernel in (
+            ("coverage_lcs", "lcs", ck.coverage_lcs_plain, lcs_bound,
+             "coverage_lcs_kernel"),
+            ("coverage_fusion", "fusion", ck.coverage_fusion_plain,
+             fusion_bound, "coverage_fusion_kernel")):
+        runs = []
+        dispatch = getattr(ck, name)
+        for label, origin, shape, args in kernel_blocks(bench_spy, long_spy,
+                                                        which):
+            def kernel_fn(args=args, dispatch=dispatch):
+                return dispatch(*args)
+
+            def plain_fn(args=args, plain=plain):
+                return plain(*args)
+
+            want = plain_fn()
+            n0 = _kernels.launch_counts[name]
+            k1, k2 = kernel_fn(), kernel_fn()
+            torch.cuda.synchronize()
+            check(_kernels.launch_counts[name] - n0 == 2,
+                  f"{name} phase: not one launch per call")
+            check(k1.dtype == want.dtype == torch.float32
+                  and k1.shape == want.shape
+                  and torch.equal(k1.view(torch.int32),
+                                  want.view(torch.int32)),
+                  f"{name} ({label}): differs from the plain version")
+            check(torch.equal(k1.view(torch.int32), k2.view(torch.int32)),
+                  f"{name} ({label}): two runs differ")
+            err = float((k1.double() - want.double()).abs().max())
+            ms, plain_ms, times = in_turns(torch, plain_fn, kernel_fn,
+                                           reps=20)
+            runs.append((label, origin, shape, args, kernel_fn, k1, err, ms,
+                         plain_ms, times))
+        dev = device_ms_each(torch, [r[4] for r in runs], kernel, reps=20)
+        out[name] = {}
+        for (label, origin, shape, args, _, k1, err, ms, plain_ms,
+             times), dev_ms in zip(runs, dev):
+            nbytes, ops, work, by_input = bound_of(args)
+            bound = bound_ms(nbytes, ops, INT32_PEAK)
+            n_c = k1.shape[-1]
+            if name == "coverage_lcs":
+                what = (f"{work} eligible candidates, "
+                        f"{int((k1 > 0).sum())} with an LCS")
+            else:
+                what = (f"{work} real (fusion token, doc token) pairs, "
+                        f"{int((k1[0] >= 1).sum())} with precedence bits")
+            log(f"[kernel] {name}, {label} (Q, L, D {shape}, C {n_c}; "
+                f"{what}): bit-equal to the plain version, deterministic; "
+                f"kernel {dev_ms:.4f} ms on the device (profiler), "
+                f"{ms:.4f} ms a call back to back (events: {times['cuda']}),"
+                f" plain {plain_ms:.4f} ms ({times['plain']}); bound "
+                f"{bound[0]:.4f} ms by {bound[1]} ({nbytes} B, {ops} integer"
+                f" operations), {bound[0] / dev_ms:.1%} of the device time; "
+                f"bound bytes by input {by_input}")
+            check(work > 0, f"{name} ({label}): the block exercises nothing")
+            out[name][label] = dict(
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], bound_bytes=nbytes,
+                bound_bytes_by_input=by_input, bound_ops=ops, origin=origin,
+                shape=list(shape), candidates=n_c)
+    return out
+
+
 def cross_device_phase(it, runtime, bench, _kernels):
     """The same small corpus served on the CPU and on the card: resident
     batches and single queries, the same under 4 shards on the one
@@ -875,13 +1271,14 @@ def main_phase(torch, it, eng, queries, _kernels):
     check(counts["stage1_scatter_lanes"] > 0,
           "main path: the lane kernel never launched")
     log(f"[main] {len(blocks)} coverage blocks in the 4 batches, "
-        f"{counts['coverage_pairs']} pair-kernel and "
-        f"{counts['coverage_cascade']} cascade-kernel launches")
-    check(counts["coverage_cascade"] == len(blocks) > 0
+        f"{counts['coverage_pairs']} pair-kernel, "
+        f"{counts['coverage_cascade']} cascade-kernel, "
+        f"{counts['coverage_lcs']} fake-LCS-kernel and "
+        f"{counts['coverage_fusion']} fusion-kernel launches")
+    check(counts["coverage_cascade"] == counts["coverage_lcs"]
+          == counts["coverage_fusion"] == len(blocks) > 0
           and counts["coverage_pairs"] == 2 * len(blocks),
-          f"main path: {counts['coverage_pairs']} pair and "
-          f"{counts['coverage_cascade']} cascade launches for "
-          f"{len(blocks)} coverage blocks")
+          f"main path: {counts} for {len(blocks)} coverage blocks")
     flat = [r for b in results for r in b]
     found = check_results(flat, N_DOCS, "search_batch")
     check(found >= len(flat) * 0.9,
@@ -1668,6 +2065,8 @@ def main(argv=None) -> int:
                 _kernels)
     ck2 = timed("2 cascade kernel", cascade_phase, torch, bench_spy, long_spy,
                 _kernels)
+    fk2 = timed("2 fusion kernel", fusion_phase, torch, bench_spy, long_spy,
+                _kernels)
     del bench_spy, long_spy
     timed("3 cross-device", cross_device_phase, it, runtime, bench, _kernels)
     counts, resident = timed("4 main", main_phase, torch, it, eng, queries,
@@ -1729,7 +2128,7 @@ def main(argv=None) -> int:
         "scatter_only_ms": k["scatter_ms"]}, {
         "name": "fuzzy_match", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/fuzzy_match.cu",
-        "replaces": "infidex_tpu/ops/fuzzy.py:59",
+        "replaces": "infidex_tpu/ops/fuzzy.py:60",
         "launches": vocab_counts["fuzzy_match"],
         "launches_per_batch": vocab_counts["fuzzy_match"] / 2,
         "launches_by_path": paths("fuzzy_match"),
@@ -1738,7 +2137,7 @@ def main(argv=None) -> int:
         "bound_by": fk["bound_by"], "library_ms": None}, {
         "name": "pool_score", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/pool_score.cu",
-        "replaces": "infidex_tpu/index/device.py:698",
+        "replaces": "infidex_tpu/index/device.py:699",
         "launches": pool_counts["pool_score"],
         "launches_per_batch": pool_counts["pool_score"] / 2,
         "launches_by_path": paths("pool_score"),
@@ -1775,7 +2174,22 @@ def main(argv=None) -> int:
         "plain_ms": ck2[main_cascade]["plain_ms"],
         "bound_ms": ck2[main_cascade]["bound_ms"],
         "bound_by": ck2[main_cascade]["bound_by"], "library_ms": None,
-        "by_block": ck2}]}), flush=True)
+        "by_block": ck2}] + [{
+        "name": name, "route": "cuda",
+        "source": f"infidex_tpu_torch/csrc/{name}.cu",
+        "replaces": f"infidex_tpu/ops/coverage_kernel.py:{line}",
+        "launches": counts[name], "launches_per_batch": counts[name] / 4,
+        "launches_by_path": paths(name),
+        "launches_per_batch_by_path": per_batch(name),
+        "max_abs_err": fk2[name][main_cascade]["max_abs_err"],
+        "ms": fk2[name][main_cascade]["ms"],
+        "device_ms": fk2[name][main_cascade]["device_ms"],
+        "plain_ms": fk2[name][main_cascade]["plain_ms"],
+        "bound_ms": fk2[name][main_cascade]["bound_ms"],
+        "bound_by": fk2[name][main_cascade]["bound_by"], "library_ms": None,
+        "by_block": fk2[name]}
+        for name, line in (("coverage_lcs", 1038),
+                           ("coverage_fusion", 1079))]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

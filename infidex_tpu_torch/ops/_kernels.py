@@ -38,7 +38,8 @@ FUZZY_TILE = 512
 
 #: launches per kernel since the last reset (one per kernel launch)
 launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
-                 "pool_score": 0, "coverage_pairs": 0, "coverage_cascade": 0}
+                 "pool_score": 0, "coverage_pairs": 0, "coverage_cascade": 0,
+                 "coverage_lcs": 0, "coverage_fusion": 0}
 
 #: char widths ``csrc/coverage_pairs.cu`` is compiled for (the coverage
 #: program's L_CAP_SMALL and L_MAX)
@@ -129,6 +130,10 @@ def build(verbose: bool = False) -> float:
         lib.coverage_pairs.restype = i
         lib.coverage_cascade.argtypes = [p] * 10 + [i] * 4 + [p] * 9
         lib.coverage_cascade.restype = i
+        lib.coverage_lcs.argtypes = [p] * 10 + [i] * 3 + [p, p]
+        lib.coverage_lcs.restype = i
+        lib.coverage_fusion.argtypes = [p] * 29 + [i] * 5 + [p, i, p, p]
+        lib.coverage_fusion.restype = i
         lib.stage1_error_string.argtypes = [i]
         lib.stage1_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -416,3 +421,141 @@ def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
                            + _lib.stage1_error_string(rc).decode())
     launch_counts["coverage_cascade"] += 1
     return outs
+
+
+def coverage_lcs(text_chars, lcs_ok, q_text, q_text_len, q_lcs_tol, q_lcs_ok,
+                 text_ids, qsel, text_len, lcs_vals):
+    """``csrc/coverage_lcs.cu``: the device fake-LCS of one coverage block
+    (see ``ops/coverage_kernel.py coverage_lcs``). ``text_chars`` int32
+    [N, T], ``lcs_ok`` bool [N]; ``q_text`` int32 [B, QT] (QT <= T, as the
+    plain version needs: it compares the query rows with the text rows'
+    first QT units), ``q_text_len``, ``q_lcs_tol`` int32 and ``q_lcs_ok``
+    bool [B]; ``text_ids`` (each below N) and ``qsel`` (each below B)
+    int64, ``text_len`` int32 and ``lcs_vals`` f32 [C]; all contiguous.
+    Returns f32 [C]. One launch."""
+    dev = text_ids.device
+    if dev.type != "cuda":
+        raise ValueError("coverage_lcs: CUDA tensors required")
+    n_n, n_t = text_chars.shape
+    n_b, n_qt = q_text.shape
+    n_c = text_ids.numel()
+    i32, i64, b8 = torch.int32, torch.int64, torch.bool
+    for name, t, dt, shape in (("text_chars", text_chars, i32, (n_n, n_t)),
+                               ("lcs_ok", lcs_ok, b8, (n_n,)),
+                               ("q_text", q_text, i32, (n_b, n_qt)),
+                               ("q_text_len", q_text_len, i32, (n_b,)),
+                               ("q_lcs_tol", q_lcs_tol, i32, (n_b,)),
+                               ("q_lcs_ok", q_lcs_ok, b8, (n_b,)),
+                               ("text_ids", text_ids, i64, (n_c,)),
+                               ("qsel", qsel, i64, (n_c,)),
+                               ("text_len", text_len, i32, (n_c,)),
+                               ("lcs_vals", lcs_vals, torch.float32, (n_c,))):
+        _check_nd(name, t, dt, shape, dev)
+    if not 1 <= n_qt <= n_t:
+        raise ValueError(f"coverage_lcs: {n_qt} query chars against text "
+                         f"rows of {n_t}")
+    out = torch.empty((n_c,), dtype=torch.float32, device=dev)
+    if n_c == 0:
+        return out
+    build()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.coverage_lcs(
+            text_chars.data_ptr(), lcs_ok.data_ptr(), q_text.data_ptr(),
+            q_text_len.data_ptr(), q_lcs_tol.data_ptr(), q_lcs_ok.data_ptr(),
+            text_ids.data_ptr(), qsel.data_ptr(), text_len.data_ptr(),
+            lcs_vals.data_ptr(), n_t, n_qt, n_c, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("coverage_lcs launch failed: "
+                           + _lib.stage1_error_string(rc).decode())
+    launch_counts["coverage_lcs"] += 1
+    return out
+
+
+def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
+                    base_scores, config, packed_lcs: bool):
+    """``csrc/coverage_fusion.cu``: the scorer + fusion program of one
+    coverage block and its pack (see ``ops/coverage_kernel.py
+    coverage_fusion``). ``state`` is the cascade kernel's result
+    (``term_matched`` f32, three bool flag rows, ``term_first_pos`` int32
+    [Q, C], ``word_hits``, ``cov_count`` int32 [C]); ``pairs`` int32
+    [Q, D, C], ``fq_pairs`` int32 [FQ, D, C]; ``doc`` = (``chars_t``,
+    ``chars_rev_t`` int32 [L, D, C], ``lens`` int32, ``adj_ws``,
+    ``all_valid`` bool [D, C], ``tok_count``, ``text_len`` int32 [C]);
+    ``queries`` the ten per-query tables it reads (q_lens int32, q_idf,
+    q_word_idf f32 [B, Q]; q_count int32 [B]; fq_chars, fq_chars_rev int32
+    [B, FQ, L]; fq_lens int32 [B, FQ]; fq_count int32, fq_last_is_alpha
+    bool, query_len int32 [B]); ``qsel``
+    int64 [C], each below B; ``lcs_vals``, ``base_scores`` f32 [C]; all
+    contiguous; it is built for the pair kernel's char widths
+    (``PAIR_CHAR_WIDTHS``) and the cascade's doc-token and query-token
+    widths (``CASCADE_DOC_WIDTHS``, Q and FQ up to ``CASCADE_Q_MAX``).
+    Returns f32 [2, C] with ``packed_lcs``, else [3, C]. One launch."""
+    dev = pairs.device
+    if dev.type != "cuda":
+        raise ValueError("coverage_fusion: CUDA tensors required")
+    (term_matched, has_whole, has_joined, has_prefix, first_pos, word_hits,
+     cov_count) = state
+    chars_t, chars_rev_t, lens, adj_ws, all_valid, tok_count, text_len = doc
+    (q_lens, q_idf, q_widf, q_count, fq_chars, fq_rev, fq_lens, fq_count,
+     last_alpha, query_len) = queries
+    n_q, n_d, n_c = pairs.shape
+    n_l = chars_t.shape[0]
+    n_b, n_fq = fq_lens.shape
+    i32, i64, f32, b8 = torch.int32, torch.int64, torch.float32, torch.bool
+    for name, t, dt, shape in (
+            ("term_matched", term_matched, f32, (n_q, n_c)),
+            ("term_has_whole", has_whole, b8, (n_q, n_c)),
+            ("term_has_joined", has_joined, b8, (n_q, n_c)),
+            ("term_has_prefix", has_prefix, b8, (n_q, n_c)),
+            ("term_first_pos", first_pos, i32, (n_q, n_c)),
+            ("word_hits", word_hits, i32, (n_c,)),
+            ("cov_count", cov_count, i32, (n_c,)),
+            ("pairs", pairs, i32, (n_q, n_d, n_c)),
+            ("fq_pairs", fq_pairs, i32, (n_fq, n_d, n_c)),
+            ("chars_t", chars_t, i32, (n_l, n_d, n_c)),
+            ("chars_rev_t", chars_rev_t, i32, (n_l, n_d, n_c)),
+            ("lens", lens, i32, (n_d, n_c)),
+            ("adj_ws", adj_ws, b8, (n_d, n_c)),
+            ("all_valid", all_valid, b8, (n_d, n_c)),
+            ("tok_count", tok_count, i32, (n_c,)),
+            ("text_len", text_len, i32, (n_c,)),
+            ("q_lens", q_lens, i32, (n_b, n_q)),
+            ("q_idf", q_idf, f32, (n_b, n_q)),
+            ("q_word_idf", q_widf, f32, (n_b, n_q)),
+            ("q_count", q_count, i32, (n_b,)),
+            ("fq_chars", fq_chars, i32, (n_b, n_fq, n_l)),
+            ("fq_chars_rev", fq_rev, i32, (n_b, n_fq, n_l)),
+            ("fq_lens", fq_lens, i32, (n_b, n_fq)),
+            ("fq_count", fq_count, i32, (n_b,)),
+            ("fq_last_is_alpha", last_alpha, b8, (n_b,)),
+            ("query_len", query_len, i32, (n_b,)),
+            ("qsel", qsel, i64, (n_c,)),
+            ("lcs_vals", lcs_vals, f32, (n_c,)),
+            ("base_scores", base_scores, f32, (n_c,))):
+        _check_nd(name, t, dt, shape, dev)
+    if (n_l not in PAIR_CHAR_WIDTHS or n_d not in CASCADE_DOC_WIDTHS
+            or not 1 <= n_q <= CASCADE_Q_MAX
+            or not 1 <= n_fq <= CASCADE_Q_MAX):
+        raise ValueError(f"coverage_fusion: Q {n_q}, FQ {n_fq}, L {n_l}, D "
+                         f"{n_d}: the kernel is built for L in "
+                         f"{PAIR_CHAR_WIDTHS}, D in {CASCADE_DOC_WIDTHS} and "
+                         f"Q, FQ up to {CASCADE_Q_MAX}")
+    out = torch.empty((2 if packed_lcs else 3, n_c), dtype=f32, device=dev)
+    if n_c == 0:
+        return out
+    build()
+    cfg = (ctypes.c_int * 2)(config.min_word_size,
+                             int(config.cover_whole_query))
+    args = (*state, pairs, fq_pairs, *doc, *queries, qsel, lcs_vals,
+            base_scores)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib.coverage_fusion(*(t.data_ptr() for t in args), n_q, n_fq,
+                                  n_l, n_d, n_c, cfg, int(bool(packed_lcs)),
+                                  out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("coverage_fusion launch failed: "
+                           + _lib.stage1_error_string(rc).decode())
+    launch_counts["coverage_fusion"] += 1
+    return out

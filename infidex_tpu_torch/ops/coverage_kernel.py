@@ -1,4 +1,4 @@
-"""Batched Stage-2/3 coverage + fusion scoring (PyTorch around two
+"""Batched Stage-2/3 coverage + fusion scoring (PyTorch around four
 hand-written kernels).
 
 Port of ``infidex_tpu/ops/coverage_kernel.py``: all candidates of a query
@@ -17,12 +17,15 @@ capacities and the packed output are the reference's; each
 float reduction over the query-token axis is an explicit sequential sum,
 so the result does not depend on a library's reduction order.
 
-Two parts of step 1 are one kernel launch each on the card:
+After the gather, a block is five launches of four kernels on the card:
 ``coverage_pairs`` (the word relations and edit distances of every (query
-token, doc token) pair, one packed int32 each) and ``coverage_cascade``
-(the four matchers over those words). For CPU tensors both take their
-plain PyTorch versions, ``coverage_pairs_plain`` and
-``coverage_cascade_plain``, with the same results bit for bit.
+token, doc token) pair, one packed int32 each; once more, relations only,
+for the fusion query tokens), ``coverage_cascade`` (step 1's four
+matchers over those words), ``coverage_lcs`` (the fake-LCS) and
+``coverage_fusion`` (steps 2-4 and the pack). For CPU tensors each takes
+its plain PyTorch version (``coverage_pairs_plain``,
+``coverage_cascade_plain``, ``coverage_lcs_plain``,
+``coverage_fusion_plain``), with the same results bit for bit.
 
 Eager PyTorch materialises what XLA fused: the largest intermediates of
 the plain versions are [Q, L, D, C] masks and the [W, Q, 3D, C] DP band of
@@ -949,31 +952,23 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
      fq_chars, fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
      query_len) = queries
     dev = doc_tokens.device
-    f32 = _F32
     text_ids = text_ids.long()
     qsel = qsel.long()
-    lcs_vals = lcs_vals.to(f32)
-    base_scores = base_scores.to(f32)
-    C = text_ids.shape[0]
-    Q = q_chars.shape[1]
-    FQ = fq_chars.shape[1]
+    lcs_vals = lcs_vals.to(_F32)
+    base_scores = base_scores.to(_F32)
     L = q_chars.shape[2]
     D = config.d_cap if config.d_cap else doc_tokens.shape[1]
 
-    # Per-candidate query views, C-minor.
+    # Per-candidate query views, C-minor, of what the pair and cascade
+    # kernels read (the fusion kernel reads the [B, ...] tables via qsel).
     qc3 = q_chars[qsel].permute(1, 2, 0).contiguous()          # [Q,L,C]
     qr3 = q_chars_rev[qsel].permute(1, 2, 0).contiguous()
     qlens2 = q_lens[qsel].T.contiguous()                       # [Q,C]
-    qidf2 = q_idf[qsel].T.contiguous()
-    qwidf2 = q_word_idf[qsel].T.contiguous()
     qcount = q_count[qsel]                                     # [C]
     qsorted2 = q_sorted[qsel].T.contiguous()                   # [Q,C]
     fqc3 = fq_chars[qsel].permute(1, 2, 0).contiguous()        # [FQ,L,C]
     fqr3 = fq_chars_rev[qsel].permute(1, 2, 0).contiguous()
     fqlens2 = fq_lens[qsel].T.contiguous()                     # [FQ,C]
-    fqcount = fq_count[qsel]                                   # [C]
-    fq_alpha = fq_last_is_alpha[qsel]
-    qlen_c = query_len[qsel]                                   # [C]
 
     # ---------------- gather doc data ---------------------------------
     codes = doc_tokens[text_ids][:, :D].T.contiguous()          # [D,C]
@@ -993,55 +988,152 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
     lens = torch.where(all_valid, lens, 0)
     first_char = chars_t[0]                          # [D,C]
 
-    q_iota = _iota(Q, dev)
-    q_valid = q_iota[:, None] < qcount[None]         # [Q,C]
-
     # One pair word per (query token, doc token): the six relations, the
     # common-prefix length and the five edit distances; then the matcher
-    # cascade over them. One kernel launch each on the card.
+    # cascade over them; then the relations of the fusion (unfiltered)
+    # query tokens; then the fake-LCS and the scorer + fusion program. One
+    # kernel launch each on the card.
     pairs = coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens,
                            all_valid, distances=True)
+    state = coverage_cascade(pairs, lens, offsets, codes, first_char,
+                             tok_count, qlens2, qsorted2, qc3, qcount, config)
+    fq_pairs = coverage_pairs(fqc3, fqr3, fqlens2, chars_t, chars_rev_t,
+                              lens, all_valid, distances=False)
+    if lcs is not None:
+        lcs_vals = coverage_lcs(*lcs, text_ids, qsel, text_len, lcs_vals)
+    doc = (chars_t, chars_rev_t, lens, adj_ws, all_valid, tok_count, text_len)
+    fusion_queries = (q_lens, q_idf, q_word_idf, q_count, fq_chars,
+                      fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
+                      query_len)
+    return coverage_fusion(state, pairs, fq_pairs, doc, fusion_queries, qsel,
+                           lcs_vals, base_scores, config,
+                           packed_lcs=lcs is not None)
+
+
+# ======================================================================
+# The device fake-LCS and the scorer + fusion program: two more
+# hand-written kernels on the card (csrc/coverage_lcs.cu,
+# csrc/coverage_fusion.cu), each with its plain PyTorch version here.
+
+
+def coverage_lcs(text_chars, lcs_ok_dev, q_text, q_text_len, q_lcs_tol,
+                 q_lcs_ok, text_ids, qsel, text_len, lcs_vals):
+    """The device fake-LCS of StringMetrics.cs:12-36 over the FULL
+    normalized text, per candidate: len(q) when the query text is contained
+    in the doc text, else min(prefix + tol, min(|q|, |r|)) when they share
+    a prefix, else 0. Candidates whose doc (``lcs_ok_dev``) or query
+    (``q_lcs_ok``) is not eligible keep their host value ``lcs_vals``.
+
+    ``text_chars`` int32 [N, T] (utf-16 code units), ``lcs_ok_dev`` bool
+    [N]; ``q_text`` int32 [B, QT], ``q_text_len``, ``q_lcs_tol`` int32 and
+    ``q_lcs_ok`` bool [B]; ``text_ids``, ``qsel`` int64, ``text_len`` int32
+    and ``lcs_vals`` f32 [C]. Returns f32 [C]. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if text_ids.device.type == "cpu":
+        return coverage_lcs_plain(text_chars, lcs_ok_dev, q_text, q_text_len,
+                                  q_lcs_tol, q_lcs_ok, text_ids, qsel,
+                                  text_len, lcs_vals)
+    return _kernels.coverage_lcs(text_chars, lcs_ok_dev, q_text, q_text_len,
+                                 q_lcs_tol, q_lcs_ok, text_ids, qsel,
+                                 text_len, lcs_vals)
+
+
+def coverage_lcs_plain(text_chars, lcs_ok_dev, q_text, q_text_len, q_lcs_tol,
+                       q_lcs_ok, text_ids, qsel, text_len, lcs_vals):
+    """Plain PyTorch version of ``coverage_lcs`` (same arguments, same
+    result bit for bit), on any device."""
+    dev = text_chars.device
+    f32 = _F32
+    text_ids = text_ids.long()
+    qsel = qsel.long()
+    C = text_ids.shape[0]
+    txt = text_chars[text_ids].T.to(_I32)                   # [T,C]
+    qt = q_text[qsel].T.contiguous()                        # [QT,C]
+    qtl = q_text_len[qsel]                                  # [C]
+    tol_c = q_lcs_tol[qsel]
+    T_CAP = txt.shape[0]
+    QT = qt.shape[0]
+    qt_iota = _iota(QT, dev)[:, None]
+    lim = torch.minimum(qtl, text_len)[None]                # [1,C]
+    mism = (qt != txt[:QT]) & (qt_iota < lim)
+    any_m = mism.any(dim=0)
+    prefix = torch.where(any_m, _first(mism, 0),
+                         torch.minimum(qtl, text_len))
+    padded_txt = torch.cat(
+        [txt, torch.zeros((QT, C), dtype=txt.dtype, device=dev)], dim=0)
+    unused = qt_iota >= qtl[None]                           # [QT,C]
+    contained = torch.zeros((C,), dtype=torch.bool, device=dev)
+    for o in range(T_CAP):
+        hit = ((padded_txt[o:o + QT] == qt) | unused).all(dim=0)
+        contained = contained | (hit & (o + qtl <= text_len))
+    pfx_val = torch.minimum(prefix + tol_c, torch.minimum(qtl, text_len))
+    dev_lcs = torch.where(contained, qtl,
+                          torch.where(prefix > 0, pfx_val, 0))
+    dev_lcs = torch.where((qtl > 0) & (text_len > 0), dev_lcs, 0)
+    use_dev = lcs_ok_dev[text_ids] & q_lcs_ok[qsel]
+    lcs_vals = torch.where(use_dev, dev_lcs.to(f32), lcs_vals)
+    return lcs_vals
+
+
+def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
+                    base_scores, config, packed_lcs: bool):
+    """CoverageScorer, FusionSignalComputer and FusionScorer over one block
+    of candidates, and the pack of their result.
+
+    ``state`` is ``coverage_cascade``'s result; ``pairs`` int32 [Q, D, C]
+    its pair words (with distances), ``fq_pairs`` int32 [FQ, D, C] those of
+    the fusion query tokens (relations only); ``doc`` is ``(chars_t,
+    chars_rev_t`` int32 [L, D, C], ``lens`` int32, ``adj_ws``, ``all_valid``
+    bool [D, C], ``tok_count``, ``text_len`` int32 [C]``)``; ``queries``
+    the ten per-query tables of ``coverage_fusion_batch`` the program reads
+    (``q_lens``, ``q_idf``, ``q_word_idf``, ``q_count``, ``fq_chars``,
+    ``fq_chars_rev``, ``fq_lens``, ``fq_count``, ``fq_last_is_alpha``,
+    ``query_len``; [B, ...]), read through ``qsel`` int64 [C];
+    ``lcs_vals``, ``base_scores`` f32 [C].
+    Returns f32 ``[2, C]`` (score, tie<<16 | word_hits<<8 | lcs) with
+    ``packed_lcs``, else ``[3, C]`` (score, tie, word_hits). CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    if pairs.device.type == "cpu":
+        return coverage_fusion_plain(state, pairs, fq_pairs, doc, queries,
+                                     qsel, lcs_vals, base_scores, config,
+                                     packed_lcs)
+    return _kernels.coverage_fusion(state, pairs, fq_pairs, doc, queries,
+                                    qsel, lcs_vals, base_scores, config,
+                                    packed_lcs)
+
+
+def coverage_fusion_plain(state, pairs, fq_pairs, doc, queries, qsel,
+                          lcs_vals, base_scores, config, packed_lcs: bool):
+    """Plain PyTorch version of ``coverage_fusion`` (same arguments, same
+    result bit for bit), on any device."""
     (term_matched, term_has_whole, term_has_joined, term_has_prefix,
-     term_first_pos, word_hits, cov_count) = coverage_cascade(
-        pairs, lens, offsets, codes, first_char, tok_count, qlens2, qsorted2,
-        qc3, qcount, config)
+     term_first_pos, word_hits, cov_count) = state
+    chars_t, chars_rev_t, lens, adj_ws, all_valid, tok_count, text_len = doc
+    (q_lens, q_idf, q_word_idf, q_count, fq_chars, fq_chars_rev, fq_lens,
+     fq_count, fq_last_is_alpha, query_len) = queries
+    dev = pairs.device
+    f32 = _F32
+    qsel = qsel.long()
+    L, D, C = chars_t.shape
+    Q = q_lens.shape[1]
+    FQ = fq_chars.shape[1]
+    qlens2 = q_lens[qsel].T.contiguous()                       # [Q,C]
+    qidf2 = q_idf[qsel].T.contiguous()
+    qwidf2 = q_word_idf[qsel].T.contiguous()
+    qcount = q_count[qsel]                                     # [C]
+    fqc3 = fq_chars[qsel].permute(1, 2, 0).contiguous()        # [FQ,L,C]
+    fqr3 = fq_chars_rev[qsel].permute(1, 2, 0).contiguous()
+    fqlens2 = fq_lens[qsel].T.contiguous()                     # [FQ,C]
+    fqcount = fq_count[qsel]                                   # [C]
+    fq_alpha = fq_last_is_alpha[qsel]
+    qlen_c = query_len[qsel]                                   # [C]
+    q_iota = _iota(Q, dev)
+    q_valid = q_iota[:, None] < qcount[None]         # [Q,C]
     dam2_q0 = (pairs[0] >> _kernels.PAIR_DIST_SHIFTS[1]) & 7     # [D,C]
 
     def at_q(arr, qi):
         """arr [Q,C] at per-candidate index qi [C] -> [C] (qi < Q)."""
         return arr.gather(0, qi.long()[None])[0]
-
-    # ================== device fake-LCS ================================
-    # StringMetrics.cs:12-36 over the FULL normalized text: len(q) when q
-    # is contained in r, else min(prefix+tol, min(|q|,|r|)) when they share
-    # a prefix, else 0. Host values survive where ineligible.
-    if lcs is not None:
-        text_chars, lcs_ok_dev, q_text, q_text_len, q_lcs_tol, q_lcs_ok = lcs
-        txt = text_chars[text_ids].T.to(_I32)                   # [T,C]
-        qt = q_text[qsel].T.contiguous()                        # [QT,C]
-        qtl = q_text_len[qsel]                                  # [C]
-        tol_c = q_lcs_tol[qsel]
-        T_CAP = txt.shape[0]
-        QT = qt.shape[0]
-        qt_iota = _iota(QT, dev)[:, None]
-        lim = torch.minimum(qtl, text_len)[None]                # [1,C]
-        mism = (qt != txt[:QT]) & (qt_iota < lim)
-        any_m = mism.any(dim=0)
-        prefix = torch.where(any_m, _first(mism, 0),
-                             torch.minimum(qtl, text_len))
-        padded_txt = torch.cat(
-            [txt, torch.zeros((QT, C), dtype=txt.dtype, device=dev)], dim=0)
-        unused = qt_iota >= qtl[None]                           # [QT,C]
-        contained = torch.zeros((C,), dtype=torch.bool, device=dev)
-        for o in range(T_CAP):
-            hit = ((padded_txt[o:o + QT] == qt) | unused).all(dim=0)
-            contained = contained | (hit & (o + qtl <= text_len))
-        pfx_val = torch.minimum(prefix + tol_c, torch.minimum(qtl, text_len))
-        dev_lcs = torch.where(contained, qtl,
-                              torch.where(prefix > 0, pfx_val, 0))
-        dev_lcs = torch.where((qtl > 0) & (text_len > 0), dev_lcs, 0)
-        use_dev = lcs_ok_dev[text_ids] & q_lcs_ok[qsel]
-        lcs_vals = torch.where(use_dev, dev_lcs.to(f32), lcs_vals)
 
     # ================== CoverageScorer =================================
     lcs_eff = lcs_vals if config.cover_whole_query else \
@@ -1111,7 +1203,7 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
 
     # ================== FusionSignalComputer ===========================
     sig = _fusion_signals(
-        fqc3, fqr3, fqlens2, fqcount, fq_alpha,
+        fqc3, fqr3, fqlens2, fqcount, fq_alpha, fq_pairs,
         dam2_q0, chars_t, chars_rev_t, lens, adj_ws, all_valid,
         tok_count, C, D, L, FQ, config)
     sig["_fq_count"] = fqcount
@@ -1125,7 +1217,7 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
         type_ahead, idf_coverage, total_idf, missing_idf,
         qwidf2, ci, has_term, sig, base_scores)
 
-    if lcs is not None:
+    if packed_lcs:
         meta = (tiebreaker.to(_I32) * 65536
                 + torch.clamp(word_hits, 0, 255).to(_I32) * 256
                 + torch.clamp(lcs_vals, 0, 255).to(_I32))
@@ -1134,13 +1226,14 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
 
 
 def _fusion_signals(fq_chars, fq_chars_rev, fq_lens, fq_count,
-                    fq_last_is_alpha, dam2_q0, chars_t, chars_rev_t,
-                    lens, adj_ws, all_valid, tok_count,
+                    fq_last_is_alpha, fq_pairs, dam2_q0, chars_t,
+                    chars_rev_t, lens, adj_ws, all_valid, tok_count,
                     C, D, L, FQ, config):
     """FusionSignalComputer.ComputeSignals, batched over candidates.
 
     fq_chars/fq_chars_rev [FQ,L,C]; fq_lens [FQ,C]; fq_count [C];
-    fq_last_is_alpha [C]; dam2_q0 [D,C]; doc tensors C-minor.
+    fq_last_is_alpha [C]; fq_pairs [FQ,D,C] the relations-only pair words
+    of the fusion query tokens; dam2_q0 [D,C]; doc tensors C-minor.
     """
     dev = chars_t.device
     f32 = _F32
@@ -1150,9 +1243,7 @@ def _fusion_signals(fq_chars, fq_chars_rev, fq_lens, fq_count,
     have = (fq_count > 0) & (tok_count > 0)
 
     (F_EQ, F_D_SW_Q, _F_D_EW_Q, _F_Q_EW_D, F_CONT, F_Q_SW_D,
-     F_CP) = unpack_relations(coverage_pairs(
-         fq_chars, fq_chars_rev, fq_lens, chars_t, chars_rev_t, lens,
-         all_valid, distances=False))
+     F_CP) = unpack_relations(fq_pairs)
 
     last_idx = torch.clamp_min(fq_count - 1, 0)                 # [C]
     last_oh2 = fq_iota[:, None] == last_idx[None, :]            # [FQ,C]

@@ -7,15 +7,16 @@ CUDA, warms up with two batches, then serves one batch under
 torch.profiler (CPU + CUDA activity: device kernel time, kernel count,
 idle share = 1 - device time / wall) and two more under cProfile (host
 time by function, pipeline threads included). Both are taken twice over,
-in turns, on the same batches: with the matcher cascade of the coverage
-program as eager PyTorch (``coverage_cascade_plain`` over the pair words
-of the kernel: the route before ``csrc/coverage_cascade.cu``, "eager"),
-and with the kernels (``csrc/coverage_pairs.cu`` and
-``csrc/coverage_cascade.cu``, "kernel"). ``--with-plain-pairs`` adds a
-third route, "plain", whose pair words are eager PyTorch too. The route is
-swapped by rebinding the coverage module's two dispatchers, not by an
-option of the package. Prints the card's name and power limit and a
-summary, and writes the full tables to DIR/profile_torch_{route}.txt and
+in turns, on the same batches: with the fake-LCS and the scorer + fusion
+program of the coverage program as eager PyTorch (``coverage_lcs_plain``
+and ``coverage_fusion_plain`` after the pair and cascade kernels: the
+route before ``csrc/coverage_lcs.cu`` and ``csrc/coverage_fusion.cu``,
+"plain fusion"), and with the four kernels ("kernel"). ``--with-plain``
+adds a third route, "plain", with no kernel in the coverage program. The
+route is swapped by rebinding the coverage module's four dispatchers, not
+by an option of the package. Prints the card's name and power limit and a
+summary (kernels a coverage block, ``_coverage_block`` host ms a block),
+and writes the full tables to DIR/profile_torch_{route}.txt and
 DIR/profile_host_{route}.txt.
 """
 
@@ -35,18 +36,22 @@ BATCH = 128
 #: functions whose cProfile rows the summary prints
 WATCH = ("_dispatch_chunk", "coverage_fusion_batch", "_coverage_block",
          "coverage_pairs", "coverage_pairs_plain", "coverage_cascade",
-         "coverage_cascade_plain", "_fusion_signals", "_dispatch_group",
+         "coverage_cascade_plain", "coverage_lcs", "coverage_lcs_plain",
+         "coverage_fusion", "coverage_fusion_plain", "_dispatch_group",
          "_collect_group", "_device_collect", "stage1_scatter_lanes",
          "_assemble_prior")
+#: the hand kernels of the coverage program
+COVERAGE_KERNELS = ("coverage_pairs", "coverage_cascade", "coverage_lcs",
+                    "coverage_fusion")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1_000_000)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
-    ap.add_argument("--with-plain-pairs", action="store_true",
-                    help="also profile the route whose pair words are "
-                         "eager PyTorch")
+    ap.add_argument("--with-plain", action="store_true",
+                    help="also profile the route with no kernel in the "
+                         "coverage program")
     args = ap.parse_args(argv)
 
     import torch
@@ -84,13 +89,14 @@ def main(argv=None):
 
     from infidex_tpu_torch.ops import coverage_kernel as ck
 
-    kernels = (ck.coverage_pairs, ck.coverage_cascade)
-    routes = {"plain": (ck.coverage_pairs_plain, ck.coverage_cascade_plain),
-              "eager": (ck.coverage_pairs, ck.coverage_cascade_plain),
+    kernels = tuple(getattr(ck, name) for name in COVERAGE_KERNELS)
+    plain = tuple(getattr(ck, name + "_plain") for name in COVERAGE_KERNELS)
+    routes = {"plain": plain, "plain fusion": kernels[:2] + plain[2:],
               "kernel": kernels}
 
     def take(route):
-        ck.coverage_pairs, ck.coverage_cascade = routes[route]
+        for name, fn in zip(COVERAGE_KERNELS, routes[route]):
+            setattr(ck, name, fn)
 
     def profiled(route):
         take(route)
@@ -108,15 +114,16 @@ def main(argv=None):
         n_kernels = sum(e.count for e in on_card)
         hand = {name: sum(e.self_device_time_total for e in on_card
                           if name + "_kernel" in e.key) / 1e3
-                for name in ("coverage_pairs", "coverage_cascade")}
+                for name in COVERAGE_KERNELS}
         print(f"[profiler, {route}] batch wall {wall * 1e3:.1f} ms; "
               f"device kernel time {dev_s * 1e3:.1f} ms in {n_kernels} "
               f"kernels; idle share {1 - dev_s / wall:.4f}; {len(blocks)} "
               f"coverage blocks, {n_kernels / max(len(blocks), 1):.0f} "
               f"kernels a block (Stage 1 included); hand-kernel launches "
-              f"{dict(_kernels.launch_counts)}, device ms of the pair and "
-              f"cascade kernels {hand}", flush=True)
-        with open(os.path.join(args.out, f"profile_torch_{route}.txt"),
+              f"{dict(_kernels.launch_counts)}, device ms of the coverage "
+              f"kernels {hand}", flush=True)
+        tag = route.replace(" ", "_")
+        with open(os.path.join(args.out, f"profile_torch_{tag}.txt"),
                   "w") as f:
             f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
             f.write("\n\n")
@@ -136,7 +143,8 @@ def main(argv=None):
         st = pstats.Stats(pr, stream=s)
         st.sort_stats("cumulative").print_stats(60)
         st.sort_stats("tottime").print_stats(40)
-        with open(os.path.join(args.out, f"profile_host_{route}.txt"),
+        with open(os.path.join(args.out,
+                               f"profile_host_{route.replace(' ', '_')}.txt"),
                   "w") as f:
             f.write(f"two batches, wall {wall2:.3f} s\n{s.getvalue()}")
         print(f"[cprofile, {route}] two batches in "
@@ -144,17 +152,19 @@ def main(argv=None):
         for (path, line, name), v in sorted(st.stats.items()):
             if name in WATCH:
                 print(f"  {name} ({os.path.basename(path)}:{line}): calls "
-                      f"{v[1]}, cum {v[3] * 1e3:.1f} ms, self "
+                      f"{v[1]}, cum {v[3] * 1e3:.1f} ms "
+                      f"({v[3] * 1e3 / max(v[1], 1):.2f} ms a call), self "
                       f"{v[2] * 1e3:.1f} ms")
 
-    extra = ("plain",) if args.with_plain_pairs else ()
+    turns = (("plain",) if args.with_plain else ()) + (
+        "plain fusion", "kernel", "kernel", "plain fusion")
     try:
-        for route in extra + ("eager", "kernel", "kernel", "eager"):
+        for route in turns:
             profiled(route)
-        for route in extra + ("eager", "kernel", "kernel", "eager"):
+        for route in turns:
             host_profiled(route)
     finally:
-        ck.coverage_pairs, ck.coverage_cascade = kernels
+        take("kernel")
 
 
 if __name__ == "__main__":
