@@ -27,7 +27,10 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      fusion signals, FusionScorer and the pack), each against its plain
      version on the first coverage block of every shape of a bench batch
      and of the long-title batches: every output equal (f32 bit for bit),
-     two identical runs, one launch per call, the kernel's device time
+     two identical runs, one launch per call (and, for the fake-LCS and
+     fusion kernels, the launch's blocks, threads a block, candidates a
+     warp, registers and shared memory, as the profiler's trace recorded
+     them), the kernel's device time
      (torch.profiler, one session per kernel over all its blocks) and its
      CUDA-event time per back-to-back call beside the bound and one run of
      the plain version in each of two turns.
@@ -167,14 +170,18 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms_each(torch, fns, kernel: str, reps: int):
+def device_ms_each(torch, fns, kernel: str, reps: int,
+                   launches: list = None):
     """Mean device milliseconds of the kernel whose name contains
     ``kernel``, for each function of ``fns``, from one torch.profiler
     session: the kernel alone, where ``cuda_ms`` (events around back-to-back
     calls) also holds the wrapper's host time whenever that is the longer.
     Each function (run once before) is run ``reps`` times in turn and
     launches the kernel once a run, so the kernel's events in launch order
-    fall into one group of ``reps`` per function."""
+    fall into one group of ``reps`` per function. With a list for
+    ``launches``, each group's launch as the profiler's trace recorded it
+    (grid, block, registers a thread, shared memory bytes; one for all the
+    group's launches) is appended there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -190,8 +197,43 @@ def device_ms_each(torch, fns, kernel: str, reps: int):
     check(len(events) == reps * len(fns),
           f"the profiler saw {len(events)} launches of {kernel}, not "
           f"{reps} for each of {len(fns)} blocks")
+    if launches is not None:
+        traced = traced_launches(prof, kernel, reps)
+        check(len(traced) == len(fns), f"the profiler's trace holds "
+              f"{len(traced)} groups of {kernel} launches, not {len(fns)}")
+        launches.extend(traced)
     return [sum(e.time_range.elapsed_us() for e in events[i:i + reps])
             / reps / 1e3 for i in range(0, len(events), reps)]
+
+
+def traced_launches(prof, kernel: str, reps: int) -> list:
+    """The launch of each group of ``reps`` kernel events whose name
+    contains ``kernel`` in a finished torch.profiler session, in launch
+    order, from its trace's kernel records: grid, block, registers a thread
+    and shared memory bytes (static and dynamic); the group's launches must
+    agree."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    records = sorted((e for e in trace["traceEvents"]
+                      if e.get("cat") == "kernel"
+                      and kernel in e.get("name", "")),
+                     key=lambda e: e["ts"])
+    out = []
+    for i in range(0, len(records), reps):
+        group = {json.dumps({k: e["args"].get(k) for k in (
+            "grid", "block", "registers per thread", "shared memory")})
+            for e in records[i:i + reps]}
+        check(len(group) == 1, f"the launches of {kernel} in one group "
+              f"differ: {sorted(group)}")
+        launch = json.loads(group.pop())
+        check(all(launch[k] is not None for k in launch),
+              f"the profiler's trace has no launch geometry for {kernel}: "
+              f"{launch}")
+        out.append(launch)
+    return out
 
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, dense, at its
@@ -1131,13 +1173,17 @@ def fusion_phase(torch, bench_spy, long_spy, _kernels):
                                            reps=20)
             runs.append((label, origin, shape, args, kernel_fn, k1, err, ms,
                          plain_ms, times))
-        dev = device_ms_each(torch, [r[4] for r in runs], kernel, reps=20)
+        launches = []
+        dev = device_ms_each(torch, [r[4] for r in runs], kernel, reps=20,
+                             launches=launches)
         out[name] = {}
         for (label, origin, shape, args, _, k1, err, ms, plain_ms,
-             times), dev_ms in zip(runs, dev):
+             times), dev_ms, launch in zip(runs, dev, launches):
             nbytes, ops, work, by_input = bound_of(args)
             bound = bound_ms(nbytes, ops, INT32_PEAK)
             n_c = k1.shape[-1]
+            blocks, threads = launch["grid"][0], launch["block"][0]
+            per_warp = n_c / (blocks * -(-threads // 32))
             if name == "coverage_lcs":
                 what = (f"{work} eligible candidates, "
                         f"{int((k1 > 0).sum())} with an LCS")
@@ -1145,7 +1191,12 @@ def fusion_phase(torch, bench_spy, long_spy, _kernels):
                 what = (f"{work} real (fusion token, doc token) pairs, "
                         f"{int((k1[0] >= 1).sum())} with precedence bits")
             log(f"[kernel] {name}, {label} (Q, L, D {shape}, C {n_c}; "
-                f"{what}): bit-equal to the plain version, deterministic; "
+                f"{what}; launched as {blocks} blocks of {threads} threads, "
+                f"{per_warp:.3f} candidates a warp, "
+                f"{launch['registers per thread']} registers a thread, "
+                f"{launch['shared memory']} B of shared memory a block, by "
+                f"the profiler's trace): bit-equal to the plain version, "
+                f"deterministic; "
                 f"kernel {dev_ms:.4f} ms on the device (profiler), "
                 f"{ms:.4f} ms a call back to back (events: {times['cuda']}),"
                 f" plain {plain_ms:.4f} ms ({times['plain']}); bound "

@@ -21,17 +21,26 @@
 // arithmetic; the result is bit-equal to the plain version (every f32
 // operation rounded on its own, in its order).
 //
-// Design. One thread per candidate, built per (L, D) so that the loops
-// over a token's chars have compile-time bounds; the per-query state is bit
-// masks and scalars, so the query-token loops need none and Q, FQ stay
-// run-time widths. Candidate-minor tensors are read in place: a warp's
-// threads read neighbouring words of each row. The signals a candidate's
-// token counts mask out are not computed, and doc tokens past its count are
-// not visited, so a thread's work follows its candidate.
+// Design. A group of G = min(D, 32) lanes per candidate, lanes over its
+// doc tokens (coverage_fusion_cell.cuh): 4 candidates a warp at D 8, 2 at
+// D 16, 1 at D 64 with two tokens a lane; built per (L, D) so that the
+// loops over a token's chars have compile-time bounds, with Q and FQ
+// run-time widths. A block of kTile = 8 candidates (8 G threads: 64, 128
+// or 256) first reads each candidate's scalars, then copies the rows its
+// candidates read into shared memory: neighbouring threads on neighbouring
+// candidates of a row, every 4-byte copy in flight at once (cp.async), and
+// only the rows below the tile's largest token, query-token and
+// fusion-token counts; the candidates' query rows too. The doc chars,
+// which only the anchor stem (three rows), the single-char boost (one
+// char) and single-token candidates' similarity read, are read in place.
+// The per-token tests of every signal then run a token a lane and combine
+// by ballots; the scorer and the fusion score run on every lane of the
+// group alike, out of shared memory (at most 46,384 bytes a block, at Q =
+// FQ = 16 and D 64).
 //
 // What bounds it. Bytes at the real token counts (the fusion tokens'
-// relation words are most of its input); in practice the latency of a
-// thread's dependent reads.
+// relation words are most of its input); in practice the latency of the
+// copy, then of the group's dependent steps.
 
 #include <cuda_runtime.h>
 
@@ -39,19 +48,37 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kSharedMax = 48 * 1024;   // without an opt-in
+
+template <int D>
+__host__ __device__ constexpr int group_lanes() { return D < 32 ? D : 32; }
 
 template <int L, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(fusion::kTile * group_lanes<D>())
 coverage_fusion_kernel(const fusion::Args a) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c < a.n_c) fusion::run<L, D>(a, c);
+  constexpr int G = group_lanes<D>();
+  extern __shared__ int tile[];
+  const int c0 = blockIdx.x * fusion::kTile;
+  const int t = static_cast<int>(threadIdx.x) / G;
+  const bool live = c0 + t < a.n_c;
+  // the candidate's scalars first: their reads overlap the tile's copy
+  fusion::In in;
+  if (live) in = fusion::tile_in<L, D>(a, tile, c0, t);
+  fusion::stage<D>(a, c0, threadIdx.x, blockDim.x, tile);
+  __syncthreads();
+  if (!live) return;   // the whole group
+  fusion::candidate<L, D, G>(grp::this_group<G>(), in, a.cfg,
+                             a.packed_lcs != 0, a.out + c0 + t, a.n_c);
 }
 
 template <int L, int D>
 int launch(const fusion::Args& a, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>((a.n_c + kThreads - 1) / kThreads);
-  coverage_fusion_kernel<L, D><<<blocks, kThreads, 0, s>>>(a);
+  const int bytes = fusion::layout<D>(a.n_q, a.n_fq).bytes;
+  if (bytes > kSharedMax) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks =
+      static_cast<unsigned>((a.n_c + fusion::kTile - 1) / fusion::kTile);
+  coverage_fusion_kernel<L, D>
+      <<<blocks, fusion::kTile * group_lanes<D>(), bytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,14 @@
-// One candidate of the scorer + fusion program of the coverage program:
-// the arithmetic of csrc/coverage_fusion.cu, in a header of its own so that
-// a host compiler can build the same code (the CPU tests compile it with
-// g++ -ffp-contract=off and hold it against the plain PyTorch version,
+// One candidate of the scorer + fusion program of the coverage program,
+// worked by a group of lanes over its doc tokens: the arithmetic of
+// csrc/coverage_fusion.cu, in a header of its own so that a host compiler
+// can build the same code (the CPU tests compile it with g++
+// -ffp-contract=off and hold it against the plain PyTorch version,
 // ops/coverage_kernel.py coverage_fusion_plain; the CUDA kernel includes it
-// unchanged).
+// unchanged). The group's collectives are those of csrc/lane_group.cuh:
+// warp intrinsics on the card, a loop over the lanes on the host.
 //
-// candidate<L, D> computes, for one candidate with up to D doc tokens of up
-// to L chars, from the matcher cascade's state and the pair words:
+// candidate<L, D, G> computes, for one candidate with up to D doc tokens
+// of up to L chars, from the matcher cascade's state and the pair words:
 //
 //   1. CoverageScorer   per query token its coverage ci, the idf sums, the
 //                       counts of matched, strict and prefix terms, the
@@ -17,24 +19,37 @@
 //   3. FusionScorer     the precedence bits and the semantic score
 //   4. the pack         [2, C] (score, tie<<16 | hits<<8 | lcs) or [3, C]
 //
+// The G lanes share the doc tokens out (lane l takes d = l, l + G, ...):
+// each signal is a test per doc token, combined by a ballot into "any",
+// "all", "the first d" or a count, and the single-term similarity is the
+// largest of the tokens' values; none of these can depend on the order of
+// the lanes. The scorer's and the fusion score's arithmetic runs on every
+// lane alike, in the plain order, and its five sums over the query tokens
+// add in token order from 0, as one thread did.
+//
 // What the plain version keeps as [Q, C], [FQ, C] and [D, C] tensors is
 // here a bit mask or a scalar per candidate, recomputed from the inputs
-// where a second pass needs it, so no per-token array is indexed at run
-// time. The relation bits of the pair words (csrc/edit_distances_cell.cuh)
-// are read directly. A signal the plain version computes for every
-// candidate and masks is computed here only where the mask holds: the
-// single-term similarity where there is one fusion token, stem evidence
-// and the single-char boost where there are two or more; and doc tokens
-// at or past tok_count, whose relation bits are 0 and which are not valid,
-// are not visited.
+// where a second pass needs it. The relation bits of the pair words
+// (csrc/edit_distances_cell.cuh) are read directly. A signal the plain
+// version computes for every candidate and masks is computed here only
+// where the mask holds: the single-term similarity where there is one
+// fusion token, stem evidence and the single-char boost where there are
+// two or more; and doc tokens at or past tok_count, whose relation bits are
+// 0 and which are not valid, are not visited.
+//
+// The kernel first copies a tile of kTile candidates' rows into shared
+// memory (stage, below; coalesced: neighbouring threads read neighbouring
+// candidates of a row), as far as the tile's token counts reach; tile_in
+// points a candidate's inputs there.
 //
 // f32: every operation is rounded on its own, in the plain version's
 // order (fadd/fsub/fmul/fdiv: __fadd_rn etc. on the card; the host build
-// needs -ffp-contract=off); the five sums over the query tokens add in
-// token order from 0; divisions are true divisions; f32 -> int casts
+// needs -ffp-contract=off); divisions are true divisions; f32 -> int casts
 // truncate, as PyTorch's do.
 
 #pragma once
+
+#include "lane_group.cuh"
 
 #if defined(__CUDACC__)
 #define FUS_HD __host__ __device__ __forceinline__
@@ -54,23 +69,24 @@ struct Config {
   int min_word_size, cover_whole_query;
 };
 
-// One candidate's inputs. Candidate-minor tensors: the pointer is at the
-// candidate's column, rows `stride` apart. Per-query tables: the pointer is
-// at the candidate's query's row.
+// One candidate's inputs. Candidate-minor rows: the pointer is at the
+// candidate's column, rows `stride` apart (the chars `char_stride` apart).
+// Per-query tables: the pointer is at the candidate's query's row.
 struct In {
-  const float* term_matched;     // [Q, C] the cascade's state ...
+  const float* term_matched;     // [Q] the cascade's state ...
   const unsigned char* has_whole;
   const unsigned char* has_joined;
   const unsigned char* has_prefix;
-  const int* first_pos;          // ... [Q, C]
-  const int* pairs;              // [Q, D, C] pair words with distances
-  const int* fq_pairs;           // [FQ, D, C] fusion tokens' relations
-  const int* chars;              // [L, D, C] doc token chars
-  const int* chars_rev;          // [L, D, C] reversed
-  const int* lens;               // [D, C] 0 where invalid
-  const unsigned char* adj_ws;   // [D, C]
-  const unsigned char* valid;    // [D, C]
-  long long stride;              // C
+  const int* first_pos;          // ... [Q]
+  const int* pairs;              // [D] query token 0's pair words
+  const int* fq_pairs;           // [FQ, D] fusion tokens' relations
+  const int* lens;               // [D] 0 where invalid
+  const unsigned char* adj_ws;   // [D]
+  const unsigned char* valid;    // [D]
+  long long stride;
+  const int* chars;              // [L, D] doc token chars
+  const int* chars_rev;          // [L, D] reversed
+  long long char_stride;
   int word_hits, cov_count, tok_count, text_len;
   float lcs, base;
   const int* q_lens;             // [Q] of the candidate's query
@@ -129,18 +145,20 @@ struct Signals {
 };
 
 // ComputeSingleTermLexicalSimilarity of the one fusion token q (q_len >= 3)
-// against the doc tokens d < n_tok.
-template <int L, int D>
-FUS_HD float single_term_sim(const In& in, int n_tok) {
-  const long long n_c = in.stride;
+// against the doc tokens d < n_tok. Each value is finite and at least +0,
+// so the largest does not depend on the order the lanes combine them in.
+template <int L, int D, int G>
+FUS_HD float single_term_sim(const grp::Group<G>& g, const In& in,
+                             int n_tok) {
+  const long long n_c = in.stride, n_ch = in.char_stride;
   const int* q = in.fq_chars;      // row 0
   const int* q_rev = in.fq_rev;
   const int q_len = in.fq_lens[0];
   const float qlen_f = static_cast<float>(imax(q_len, 1));
-  float best = 0.0f;
-  for (int d = 0; d < n_tok; ++d) {
+  // doc token d's similarity, 0 where it has none
+  const auto sim = [&](int d) -> float {
     const int dl = in.lens[d * n_c];
-    if (!in.valid[d * n_c] || dl < 2) continue;
+    if (!in.valid[d * n_c] || dl < 2) return 0.0f;
     // one slide over the query's window shifts: the first shift where the
     // doc word lies inside the query, and the longest query suffix that is
     // a prefix of the doc word (the first shift that has one: k falls).
@@ -152,7 +170,7 @@ FUS_HD float single_term_sim(const In& in, int n_tok) {
       int m = L;   // first mismatch of the shifted query against the word
       for (int l = 0; l < L; ++l) {
         const int qc = sw + l < L ? q[sw + l] : 0;
-        if (qc != in.chars[(l * D + d) * n_c]) {
+        if (qc != in.chars[(l * D + d) * n_ch]) {
           m = l;
           break;
         }
@@ -160,45 +178,51 @@ FUS_HD float single_term_sim(const In& in, int n_tok) {
       if (found < 0 && m >= imin(dl, L) && sw + dl <= q_len) found = sw;
       if (best_k == 0 && k >= 2 && k <= imin(q_len, dl) && m >= k) best_k = k;
     }
-    float v;
     if (found >= 0) {
-      v = fmul(fdiv(static_cast<float>(dl), qlen_f),
-               fsub(1.0f, fdiv(static_cast<float>(found), qlen_f)));
-    } else {
-      const float ps = fdiv(static_cast<float>(best_k), qlen_f);
-      const int dist = (in.pairs[d * n_c] >> kDam2Shift) & 7;
-      const float fz = dist <= 2
-                           ? fdiv(static_cast<float>(q_len - dist), qlen_f)
-                           : 0.0f;
-      v = fmax_(ps, fz);
+      return fmul(fdiv(static_cast<float>(dl), qlen_f),
+                  fsub(1.0f, fdiv(static_cast<float>(found), qlen_f)));
     }
-    best = fmax_(best, v);
-  }
-  // two-segment heuristic
+    const float ps = fdiv(static_cast<float>(best_k), qlen_f);
+    const int dist = (in.pairs[d * n_c] >> kDam2Shift) & 7;
+    const float fz =
+        dist <= 2 ? fdiv(static_cast<float>(q_len - dist), qlen_f) : 0.0f;
+    return fmax_(ps, fz);
+  };
+  float best = grp::max_of(g, [&](int lane) {
+    float b = 0.0f;
+    for (int d = lane; d < n_tok; d += G) b = fmax_(b, sim(d));
+    return b;
+  });
+  // two-segment heuristic: the first doc token the query's first seg_len
+  // chars start, and the first its last seg_len chars end
   if (q_len >= 2 * kMinSeg) {
     const int seg_len = imin(q_len / 2, 2 * kMinSeg);
-    int pre_i = -1, suf_i = -1;
-    for (int d = 0; d < n_tok; ++d) {
+    const auto starts = [&](int d, const int* qq, const int* cc) {
       const int dl = in.lens[d * n_c];
-      if (!in.valid[d * n_c] || dl < 3) continue;
+      if (!in.valid[d * n_c] || dl < 3) return false;
       const int m3 = imin(imin(seg_len, dl), L);
-      bool pre = true, suf = true;
       for (int l = 0; l < m3; ++l) {
-        pre = pre && q[l] == in.chars[(l * D + d) * n_c];
-        suf = suf && q_rev[l] == in.chars_rev[(l * D + d) * n_c];
+        if (qq[l] != cc[(l * D + d) * n_ch]) return false;
       }
-      if (pre && pre_i < 0) pre_i = d;
-      if (suf && suf_i < 0) suf_i = d;
+      return true;
+    };
+    const int pre_i = grp::first(
+        g, 0, n_tok, [&](int d) { return starts(d, q, in.chars); });
+    const int suf_i = grp::first(
+        g, 0, n_tok, [&](int d) { return starts(d, q_rev, in.chars_rev); });
+    const float two =
+        fmin_(fdiv(static_cast<float>(2 * seg_len), qlen_f), 1.0f);
+    if (pre_i < n_tok && suf_i < n_tok && pre_i != suf_i && two > best) {
+      best = two;
     }
-    const float two = fmin_(fdiv(static_cast<float>(2 * seg_len), qlen_f), 1.0f);
-    if (pre_i >= 0 && suf_i >= 0 && pre_i != suf_i && two > best) best = two;
   }
   return best;
 }
 
-template <int L, int D>
-FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
-  const long long n_c = in.stride;
+template <int L, int D, int G>
+FUS_HD Signals fusion_signals(const grp::Group<G>& g, const In& in,
+                              const Config& cfg) {
+  const long long n_c = in.stride, n_ch = in.char_stride;
 #define FUS_FP(f, d) (in.fq_pairs[(static_cast<long long>(f) * D + (d)) * n_c])
   Signals s;
   const int fqn = in.fq_count, tok = in.tok_count;
@@ -211,36 +235,28 @@ FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
 
   // 1. CheckPrefixLastMatch
   if (fqn == 1) {
-    for (int d = 0; d < n_tok; ++d) {
-      if (FUS_FP(0, d) & kDSwQ) {
-        s.lexical_prefix_last = true;
-        break;
-      }
-    }
+    s.lexical_prefix_last = grp::any(
+        g, n_tok, [&](int d) { return (FUS_FP(0, d) & kDSwQ) != 0; });
   } else {
     bool all_prec = true;
     for (int f = 0; f < imin(fqn - 1, in.n_fq) && all_prec; ++f) {
-      bool eq = false;
-      for (int d = 0; d < n_tok && !eq; ++d) eq = (FUS_FP(f, d) & kEq) != 0;
-      all_prec = eq;
+      all_prec = grp::any(
+          g, n_tok, [&](int d) { return (FUS_FP(f, d) & kEq) != 0; });
     }
-    bool last_sw = false;
-    for (int d = 0; d < n_tok && last_row && !last_sw; ++d) {
-      last_sw = (FUS_FP(last, d) & kDSwQ) != 0;
-    }
-    s.lexical_prefix_last = all_prec && last_sw;
+    s.lexical_prefix_last =
+        all_prec && last_row && grp::any(g, n_tok, [&](int d) {
+          return (FUS_FP(last, d) & kDSwQ) != 0;
+        });
   }
 
   // 2. PerfectDoc: every valid doc token starts or is started by a token
-  s.perfect_doc = true;
-  for (int d = 0; d < n_tok && s.perfect_doc; ++d) {
-    if (!in.valid[d * n_c]) continue;
-    bool explained = false;
-    for (int f = 0; f < n_rows && !explained; ++f) {
-      explained = (FUS_FP(f, d) & (kDSwQ | kQSwD)) != 0;
+  s.perfect_doc = grp::all(g, n_tok, [&](int d) {
+    if (!in.valid[d * n_c]) return true;
+    for (int f = 0; f < n_rows; ++f) {
+      if (FUS_FP(f, d) & (kDSwQ | kQSwD)) return true;
     }
-    s.perfect_doc = explained;
-  }
+    return false;
+  });
 
   // 3. StemEvidence: every unmatched token has a doc token it starts or
   // shares a stem with
@@ -249,41 +265,39 @@ FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
     int unmatched = 0, evidenced = 0;
     for (int f = 0; f < n_rows; ++f) {
       if (in.fq_lens[f] < min_stem) continue;
-      bool word_match = false, evidence = false;
-      for (int d = 0; d < n_tok; ++d) {
-        const int w = FUS_FP(f, d);
-        word_match = word_match || (w & (kEq | kDSwQ)) != 0;
-        evidence = evidence ||
-                   (in.valid[d * n_c] && in.lens[d * n_c] >= min_stem &&
-                    ((w & kQSwD) || ((w >> kPrefixShift) & 31) >= min_stem));
+      if (grp::any(g, n_tok, [&](int d) {
+            return (FUS_FP(f, d) & (kEq | kDSwQ)) != 0;
+          })) {
+        continue;
       }
-      if (word_match) continue;
       ++unmatched;
-      evidenced += evidence;
+      evidenced += grp::any(g, n_tok, [&](int d) {
+        const int w = FUS_FP(f, d);
+        return in.valid[d * n_c] && in.lens[d * n_c] >= min_stem &&
+               ((w & kQSwD) || ((w >> kPrefixShift) & 31) >= min_stem);
+      });
     }
     s.stem_evidence = unmatched > 0 && evidenced == unmatched;
   }
 
   // 4. AnchorStem: the first token's first three chars start a doc token
   if (in.fq_lens[0] >= kAnchorStem && in.lens[0] >= kAnchorStem) {
-    for (int d = 0; d < n_tok && !s.anchor_stem; ++d) {
-      if (!in.valid[d * n_c] || in.lens[d * n_c] < kAnchorStem) continue;
-      bool eq = true;
+    s.anchor_stem = grp::any(g, n_tok, [&](int d) {
+      if (!in.valid[d * n_c] || in.lens[d * n_c] < kAnchorStem) return false;
       for (int l = 0; l < kAnchorStem; ++l) {
-        eq = eq && in.chars[(l * D + d) * n_c] == in.fq_chars[l];
+        if (in.chars[(l * D + d) * n_ch] != in.fq_chars[l]) return false;
       }
-      s.anchor_stem = eq;
-    }
+      return true;
+    });
   }
 
   // 5. TrailingMatchDensity
   if (fqn >= 2 && last_len >= 1 && last_len <= kMaxTrailing) {
-    int m_count = 0;
-    for (int d = 0; d < n_tok; ++d) {
+    const int m_count = grp::count(g, n_tok, [&](int d) {
       const int w = FUS_FP(last, d);
-      m_count += in.valid[d * n_c] &&
-                 ((w & kDSwQ) || (in.lens[d * n_c] > last_len && (w & kDContQ)));
-    }
+      return in.valid[d * n_c] &&
+             ((w & kDSwQ) || (in.lens[d * n_c] > last_len && (w & kDContQ)));
+    });
     if (m_count > 0) {
       const float density = fdiv(static_cast<float>(m_count),
                                  static_cast<float>(imax(tok, 1)));
@@ -294,7 +308,7 @@ FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
   // 6. SingleTermLexicalSim (one fusion token: coverage token 0, whose
   // Damerau distances the pair words hold)
   if (fqn == 1 && in.fq_lens[0] >= 3) {
-    s.single_sim = byte_of(single_term_sim<L, D>(in, n_tok));
+    s.single_sim = byte_of(single_term_sim<L, D, G>(g, in, n_tok));
   }
 
   // 7. SingleCharLastTokenBoost: the preceding tokens contained in doc
@@ -303,14 +317,10 @@ FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
     int d_index = 0, first_match = -1;
     bool alive = true;
     for (int i = 0; i < imin(in.n_fq - 1, fqn - 1) && alive; ++i) {
-      int j = -1;
-      for (int d = d_index; d < n_tok; ++d) {
-        if (FUS_FP(i, d) & kDContQ) {
-          j = d;
-          break;
-        }
-      }
-      alive = j >= 0;
+      const int j = grp::first(g, d_index, n_tok, [&](int d) {
+        return (FUS_FP(i, d) & kDContQ) != 0;
+      });
+      alive = j < n_tok;
       if (alive) {
         if (first_match == -1) first_match = j;
         d_index = j;
@@ -318,7 +328,8 @@ FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
     }
     const int nxt = d_index + 1;
     if (alive && nxt < D && in.valid[nxt * n_c] &&
-        in.chars[nxt * n_c] == in.fq_chars[static_cast<long long>(last) * L] &&
+        in.chars[nxt * n_ch] ==
+            in.fq_chars[static_cast<long long>(last) * L] &&
         in.adj_ws[d_index * n_c]) {
       s.single_char_boost = 8 + imax(16 - first_match, 0) +
                             (in.lens[nxt * n_c] == 1 ? 4 : 0);
@@ -328,11 +339,13 @@ FUS_HD Signals fusion_signals(const In& in, const Config& cfg) {
   return s;
 }
 
-// One candidate: writes its packed result, row r at out[r * out_stride]:
-// [score, tie<<16 | hits<<8 | lcs] with packed_lcs, else [score, tie, hits].
-template <int L, int D>
-FUS_HD void candidate(const In& in, const Config& cfg, bool packed_lcs,
-                      float* out, long long out_stride) {
+// One candidate: the group's leader writes its packed result, row r at
+// out[r * out_stride]: [score, tie<<16 | hits<<8 | lcs] with packed_lcs,
+// else [score, tie, hits].
+template <int L, int D, int G>
+FUS_HD void candidate(const grp::Group<G>& g, const In& in,
+                      const Config& cfg, bool packed_lcs, float* out,
+                      long long out_stride) {
   const long long n_c = in.stride;
   const int Q = in.n_q, qcount = in.qcount;
 
@@ -346,9 +359,10 @@ FUS_HD void candidate(const In& in, const Config& cfg, bool packed_lcs,
   int min_pos = 1 << 30;
   bool any_pos = false;
   for (int i = 0; i < Q; ++i) {
-    const int ql = in.q_lens[i];
+    // slots past the query's tokens add 0 and are not read
+    const int ql = i < qcount ? in.q_lens[i] : 0;
     const bool ht = i < qcount && ql > 0;
-    const float tm = in.term_matched[i * n_c];
+    const float tm = ht ? in.term_matched[i * n_c] : 0.0f;
     const float tmc = static_cast<float>(ql);
     const float ci = ht ? fmin_(fdiv(tm, fmax_(tmc, 1.0f)), 1.0f) : 0.0f;
     const float idf_h = ht ? in.q_idf[i] : 0.0f;
@@ -412,7 +426,7 @@ FUS_HD void candidate(const In& in, const Config& cfg, bool packed_lcs,
   }
 
   // ---- FusionSignalComputer ---------------------------------------------
-  const Signals sig = fusion_signals<L, D>(in, cfg);
+  const Signals sig = fusion_signals<L, D, G>(g, in, cfg);
 
   // ---- FusionScorer -----------------------------------------------------
   const int fqn = in.fq_count;
@@ -553,6 +567,7 @@ FUS_HD void candidate(const In& in, const Config& cfg, bool packed_lcs,
   const float score = fadd(static_cast<float>(precedence), semantic);
 
   // ---- the pack ---------------------------------------------------------
+  if (!grp::leader(g)) return;
   out[0] = score;
   if (packed_lcs) {
     const int hits = imin(imax(in.word_hits, 0), 255);
@@ -590,36 +605,190 @@ struct Args {
   float* out;   // [2 or 3, C]
 };
 
-// Candidate c's inputs out of the block's tensors.
-template <int L>
-FUS_HD In load(const Args& a, int c) {
+// ---- the tile --------------------------------------------------------------
+// kTile candidates' rows in shared memory. Candidate-minor rows are
+// [rows][kRow] (kRow = kTile + 1: lanes over doc tokens and neighbouring
+// candidates fall into different banks); the per-query rows of a candidate
+// are contiguous, [kTile][width + 1]. Ints first, then bytes. Eight, not
+// four: on an H100 a tile of four, with twice the blocks, was slower on
+// five of seven blocks measured, 3 % faster on one of 907 candidates
+// (114 blocks of eight) and no faster on one of 118 (PERF.md).
+
+constexpr int kTile = 8;
+constexpr int kRow = kTile + 1;
+
+struct Layout {
+  // offsets in ints
+  int term_matched, first_pos, pairs, fq_pairs, lens, q_lens, q_idf, q_widf,
+      fq_lens, ints;
+  // offsets in bytes past the ints
+  int has_whole, has_joined, has_prefix, adj_ws, valid, bytes;
+};
+
+template <int D>
+FUS_HD Layout layout(int n_q, int n_fq) {
+  Layout y;
+  y.term_matched = 0;
+  y.first_pos = y.term_matched + n_q * kRow;
+  y.pairs = y.first_pos + n_q * kRow;
+  y.fq_pairs = y.pairs + D * kRow;
+  y.lens = y.fq_pairs + n_fq * D * kRow;
+  y.q_lens = y.lens + D * kRow;
+  y.q_idf = y.q_lens + kTile * (n_q + 1);
+  y.q_widf = y.q_idf + kTile * (n_q + 1);
+  y.fq_lens = y.q_widf + kTile * (n_q + 1);
+  y.ints = y.fq_lens + kTile * (n_fq + 1);
+  y.has_whole = 0;
+  y.has_joined = y.has_whole + n_q * kRow;
+  y.has_prefix = y.has_joined + n_q * kRow;
+  y.adj_ws = y.has_prefix + n_q * kRow;
+  y.valid = y.adj_ws + D * kRow;
+  y.bytes = 4 * y.ints + y.valid + D * kRow;
+  return y;
+}
+
+// Thread `tid` of `n_threads` copies its share of the rows that candidates
+// c0 .. c0 + kTile (those below C) read into the tile `smem`: the query
+// slots below the tile's largest query-token count (at least one), the
+// fusion-token rows below its largest fusion-token count, and the doc
+// tokens below its largest token count and the one after it (the
+// single-char boost tests the token after a match).
+template <int D>
+FUS_HD void stage(const Args& a, int c0, int tid, int n_threads, int* smem) {
+  const int width = imin(kTile, a.n_c - c0);
+  int max_tok = 0, max_q = 0, max_fq = 0;
+  for (int t = 0; t < width; ++t) {
+    const long long b = a.qsel[c0 + t];
+    max_tok = imax(max_tok, a.tok_count[c0 + t]);
+    max_q = imax(max_q, a.q_count[b]);
+    max_fq = imax(max_fq, a.fq_count[b]);
+  }
+  const int n_q = a.n_q, n_fq = a.n_fq;
+  const int rows_q = imin(imax(max_q, 1), n_q);
+  const int rows_fq = imin(max_fq, n_fq);
+  const int rows_tok = imin(max_tok, D);
+  const int rows_d = imin(rows_tok + 1, D);
+  const long long n_c = a.n_c;
+  const Layout y = layout<D>(n_q, n_fq);
+  // the words: rows [0, n_rows) of a candidate-minor tensor, rows
+  // `row_stride` apart, every copy in flight at once
+  const auto rows = [&](auto* dst, const auto* src, int n_rows,
+                        long long row_stride) {
+    for (int i = tid; i < n_rows * kTile; i += n_threads) {
+      const int r = i / kTile, t = i % kTile;
+      if (t < width) {
+        grp::copy_async(dst + r * kRow + t, src + r * row_stride + c0 + t);
+      }
+    }
+  };
+  rows(reinterpret_cast<float*>(smem + y.term_matched), a.term_matched,
+       rows_q, n_c);
+  rows(smem + y.first_pos, a.first_pos, rows_q, n_c);
+  rows(smem + y.pairs, a.pairs, rows_tok, n_c);        // query token 0's
+  rows(smem + y.lens, a.lens, rows_d, n_c);
+  // fusion-token relations (f, d), f < rows_fq, d < rows_tok
+  for (int i = tid; i < rows_fq * rows_tok * kTile; i += n_threads) {
+    const int r = i / kTile, t = i % kTile;
+    const int row = (r / rows_tok) * D + r % rows_tok;
+    if (t < width) {
+      grp::copy_async(smem + y.fq_pairs + row * kRow + t,
+                      a.fq_pairs + row * n_c + c0 + t);
+    }
+  }
+  // the candidates' query rows
+  for (int i = tid; i < width * rows_q; i += n_threads) {
+    const int t = i / rows_q, k = i % rows_q;
+    const long long at = a.qsel[c0 + t] * n_q + k;
+    const int to = t * (n_q + 1) + k;
+    grp::copy_async(smem + y.q_lens + to, a.q_lens + at);
+    grp::copy_async(reinterpret_cast<float*>(smem + y.q_idf) + to,
+                    a.q_idf + at);
+    grp::copy_async(reinterpret_cast<float*>(smem + y.q_widf) + to,
+                    a.q_widf + at);
+  }
+  for (int i = tid; i < width * rows_fq; i += n_threads) {
+    const int t = i / rows_fq, k = i % rows_fq;
+    grp::copy_async(smem + y.fq_lens + t * (n_fq + 1) + k,
+                    a.fq_lens + a.qsel[c0 + t] * n_fq + k);
+  }
+  // the byte rows (three flags of each query slot, adjacency and validity
+  // of each doc token): kBatch loads of a thread, then their stores
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(smem + y.ints);
+  const auto src_row = [&](int which) {
+    return which == 0   ? a.has_whole
+           : which == 1 ? a.has_joined
+           : which == 2 ? a.has_prefix
+           : which == 3 ? a.adj_ws
+                        : a.valid;
+  };
+  const auto dst_row = [&](int which) {
+    return which == 0   ? y.has_whole
+           : which == 1 ? y.has_joined
+           : which == 2 ? y.has_prefix
+           : which == 3 ? y.adj_ws
+                        : y.valid;
+  };
+  const int n_bytes = (3 * rows_q + 2 * rows_d) * kTile;
+  constexpr int kBatch = 4;
+  for (int i0 = tid; i0 < n_bytes; i0 += kBatch * n_threads) {
+    unsigned char v[kBatch];
+    int to[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * n_threads;
+      const int g = i / kTile, t = i % kTile;
+      // row g of the five: rows_q of each flag, then rows_d of the two
+      const int which = g < 3 * rows_q ? g / rows_q
+                                       : 3 + (g - 3 * rows_q) / rows_d;
+      const int r = g < 3 * rows_q ? g % rows_q : (g - 3 * rows_q) % rows_d;
+      to[k] = i < n_bytes && t < width ? dst_row(which) + r * kRow + t : -1;
+      v[k] = to[k] >= 0 ? src_row(which)[r * n_c + c0 + t] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (to[k] >= 0) bytes[to[k]] = v[k];
+    }
+  }
+  grp::copy_wait();
+}
+
+// Candidate c0 + t's inputs: its rows in the tile `smem` (after stage),
+// its chars and scalars in place.
+template <int L, int D>
+FUS_HD In tile_in(const Args& a, const int* smem, int c0, int t) {
+  const Layout y = layout<D>(a.n_q, a.n_fq);
+  const unsigned char* bytes =
+      reinterpret_cast<const unsigned char*>(smem + y.ints);
+  const int c = c0 + t;
   const long long b = a.qsel[c];
   In in;
-  in.term_matched = a.term_matched + c;
-  in.has_whole = a.has_whole + c;
-  in.has_joined = a.has_joined + c;
-  in.has_prefix = a.has_prefix + c;
-  in.first_pos = a.first_pos + c;
-  in.pairs = a.pairs + c;
-  in.fq_pairs = a.fq_pairs + c;
+  in.term_matched = reinterpret_cast<const float*>(smem + y.term_matched) + t;
+  in.has_whole = bytes + y.has_whole + t;
+  in.has_joined = bytes + y.has_joined + t;
+  in.has_prefix = bytes + y.has_prefix + t;
+  in.first_pos = smem + y.first_pos + t;
+  in.pairs = smem + y.pairs + t;
+  in.fq_pairs = smem + y.fq_pairs + t;
+  in.lens = smem + y.lens + t;
+  in.adj_ws = bytes + y.adj_ws + t;
+  in.valid = bytes + y.valid + t;
+  in.stride = kRow;
   in.chars = a.chars + c;
   in.chars_rev = a.chars_rev + c;
-  in.lens = a.lens + c;
-  in.adj_ws = a.adj_ws + c;
-  in.valid = a.valid + c;
-  in.stride = a.n_c;
+  in.char_stride = a.n_c;
   in.word_hits = a.word_hits[c];
   in.cov_count = a.cov_count[c];
   in.tok_count = a.tok_count[c];
   in.text_len = a.text_len[c];
   in.lcs = a.lcs[c];
   in.base = a.base[c];
-  in.q_lens = a.q_lens + b * a.n_q;
-  in.q_idf = a.q_idf + b * a.n_q;
-  in.q_widf = a.q_widf + b * a.n_q;
+  in.q_lens = smem + y.q_lens + t * (a.n_q + 1);
+  in.q_idf = reinterpret_cast<const float*>(smem + y.q_idf) + t * (a.n_q + 1);
+  in.q_widf =
+      reinterpret_cast<const float*>(smem + y.q_widf) + t * (a.n_q + 1);
   in.fq_chars = a.fq_chars + b * a.n_fq * L;
   in.fq_rev = a.fq_rev + b * a.n_fq * L;
-  in.fq_lens = a.fq_lens + b * a.n_fq;
+  in.fq_lens = smem + y.fq_lens + t * (a.n_fq + 1);
   in.n_q = a.n_q;
   in.n_fq = a.n_fq;
   in.qcount = a.q_count[b];
@@ -627,12 +796,6 @@ FUS_HD In load(const Args& a, int c) {
   in.last_alpha = a.last_alpha[b];
   in.query_len = a.query_len[b];
   return in;
-}
-
-// Candidate c of a block: its packed result into column c of a.out.
-template <int L, int D>
-FUS_HD void run(const Args& a, int c) {
-  candidate<L, D>(load<L>(a, c), a.cfg, a.packed_lcs != 0, a.out + c, a.n_c);
 }
 
 }  // namespace fusion

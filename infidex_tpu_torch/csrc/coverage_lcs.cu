@@ -16,15 +16,22 @@
 // of q_text (int32 [B, QT]), as a float; elsewhere the host value
 // lcs_in[c]. Exact (integers until the last cast).
 //
-// Design. One thread per candidate, reading its doc's row and its query's
-// row in place (no gather); the offsets are walked in order and the walk
-// stops at the first hit, each offset's compare at its first mismatch, so
-// a thread's work follows its own text and query lengths. Ineligible
-// candidates read nothing but their flags.
+// Design. A warp per candidate, four to a block, so that a block of 8,192
+// candidates runs as 8,192 warps. Four, not eight: a block's resources are
+// freed when its slowest warp ends, and on an H100 four were up to 13 %
+// faster on rows of 256 units and as fast elsewhere (PERF.md). The warp
+// copies its doc's row (contiguous, at most T units: coalesced) and its
+// query's row into its own slice of shared memory, as far as the compares
+// reach, with zeros past the row's end; then lane l tests the text offsets
+// l, l + 32, ... for containment (each compare stops at its first
+// mismatch; neighbouring lanes read neighbouring words), a ballot a round,
+// and the common prefix is a ballot of mismatches and a find-first-set.
+// Ineligible candidates read nothing but their flags.
 //
 // What bounds it. Bytes (the text and query chars the compares need, and
-// the ids), far below either bound in practice: latency of the dependent
-// reads of a thread's row, which L1 holds after the first.
+// the ids), far below either bound in practice: the latency of the three
+// dependent reads (ids, then flags and lengths, then the rows), which the
+// many warps in flight on each SM overlap.
 
 #include <cuda_runtime.h>
 
@@ -32,7 +39,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;   // candidates per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSharedMax = 48 * 1024;   // without an opt-in
 
 __global__ void __launch_bounds__(kThreads)
 coverage_lcs_kernel(const int* __restrict__ text_chars,
@@ -46,10 +55,16 @@ coverage_lcs_kernel(const int* __restrict__ text_chars,
                     const int* __restrict__ text_len,
                     const float* __restrict__ lcs_in, int t_cap, int qt_cap,
                     int n_c, float* __restrict__ out) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  extern __shared__ int scratch[];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int c = blockIdx.x * kWarps + warp;
   if (c >= n_c) return;
-  out[c] = lcs::candidate(text_chars, lcs_ok, q_text, q_text_len, q_tol, q_ok,
-                          text_ids, qsel, text_len, lcs_in, t_cap, qt_cap, c);
+  const grp::Group<32> g = grp::this_group<32>();
+  const float v = lcs::candidate(
+      g, scratch + warp * lcs::scratch_ints(t_cap, qt_cap), text_chars,
+      lcs_ok, q_text, q_text_len, q_tol, q_ok, text_ids, qsel, text_len,
+      lcs_in, t_cap, qt_cap, c);
+  if (grp::leader(g)) out[c] = v;
 }
 
 }  // namespace
@@ -58,7 +73,9 @@ extern "C" {
 
 // The fake-LCS of n_c candidates on `stream`; every text id below the
 // rows of text_chars, every qsel below the rows of q_text. Returns
-// cudaGetLastError() of the launch (0 on success).
+// cudaGetLastError() of the launch (0 on success), or
+// cudaErrorInvalidValue for rows too wide for the scratch (t_cap +
+// 2 * qt_cap above 1,536 units; the tables' widest is 256 + 2 * 64).
 int coverage_lcs(const int* text_chars, const unsigned char* lcs_ok,
                  const int* q_text, const int* q_text_len, const int* q_tol,
                  const unsigned char* q_ok, const long long* text_ids,
@@ -66,8 +83,11 @@ int coverage_lcs(const int* text_chars, const unsigned char* lcs_ok,
                  const float* lcs_in, int t_cap, int qt_cap, int n_c,
                  float* out, void* stream) {
   if (n_c <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n_c + kThreads - 1) / kThreads);
-  coverage_lcs_kernel<<<blocks, kThreads, 0,
+  const long long bytes =
+      4LL * kWarps * lcs::scratch_ints(t_cap, qt_cap);
+  if (bytes > kSharedMax) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((n_c + kWarps - 1) / kWarps);
+  coverage_lcs_kernel<<<blocks, kThreads, static_cast<size_t>(bytes),
                         static_cast<cudaStream_t>(stream)>>>(
       text_chars, lcs_ok, q_text, q_text_len, q_tol, q_ok, text_ids, qsel,
       text_len, lcs_in, t_cap, qt_cap, n_c, out);

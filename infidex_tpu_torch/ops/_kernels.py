@@ -93,6 +93,31 @@ def library_path() -> str:
                         f"libinfidex_kernels.{tag.hexdigest()[:12]}.so")
 
 
+def bind(lib):
+    """Declare the argument and result types of the entry points that
+    ``lib`` exports: the library built from ``csrc/``, or one built from
+    some of its files (an earlier design with the same C interface).
+    Returns ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in (
+            ("stage1_scatter_lanes", [p, p, p, p, p, p, p, i, p, p, i, i, p,
+                                      p, p]),
+            ("fuzzy_match", [p, p, p, p, p, p, p, i, i, i, i, p, p, p]),
+            ("pool_score", [p, p, p, p, p, i, i, i, p, ctypes.c_longlong, p,
+                            p, p, p, p]),
+            ("coverage_pairs", [p, p, p, p, p, p, p, i, i, i, i, i, p, p]),
+            ("coverage_cascade", [p] * 10 + [i] * 4 + [p] * 9),
+            ("coverage_lcs", [p] * 10 + [i] * 3 + [p, p]),
+            ("coverage_fusion", [p] * 29 + [i] * 5 + [p, i, p, p])):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i
+    if hasattr(lib, "stage1_error_string"):
+        lib.stage1_error_string.argtypes = [i]
+        lib.stage1_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build(verbose: bool = False) -> float:
     """Compile the kernels if needed and load them; returns the seconds
     spent (0.0 when already loaded)."""
@@ -115,27 +140,7 @@ def build(verbose: bool = False) -> float:
             if verbose:
                 print(res.stdout + res.stderr, flush=True)
             os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stage1_scatter_lanes.argtypes = [p, p, p, p, p, p, p, i, p, p,
-                                             i, i, p, p, p]
-        lib.stage1_scatter_lanes.restype = i
-        lib.fuzzy_match.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p, p]
-        lib.fuzzy_match.restype = i
-        lib.pool_score.argtypes = [p, p, p, p, p, i, i, i, p,
-                                   ctypes.c_longlong, p, p, p, p, p]
-        lib.pool_score.restype = i
-        lib.coverage_pairs.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p,
-                                       p]
-        lib.coverage_pairs.restype = i
-        lib.coverage_cascade.argtypes = [p] * 10 + [i] * 4 + [p] * 9
-        lib.coverage_cascade.restype = i
-        lib.coverage_lcs.argtypes = [p] * 10 + [i] * 3 + [p, p]
-        lib.coverage_lcs.restype = i
-        lib.coverage_fusion.argtypes = [p] * 29 + [i] * 5 + [p, i, p, p]
-        lib.coverage_fusion.restype = i
-        lib.stage1_error_string.argtypes = [i]
-        lib.stage1_error_string.restype = ctypes.c_char_p
+        lib = bind(ctypes.CDLL(so))
         _lib = lib
         return time.perf_counter() - t0
 
@@ -248,14 +253,17 @@ def fuzzy_match(sig, vpop, vlen, elig, qsig, qpop, qlen, cap: int):
 
 
 def pool_score(pool, pool_valid, term_starts, term_lens, term_idf,
-               postings_docs, postings_weights, doc_lengths, avgdl):
+               postings_docs, postings_weights, doc_lengths, avgdl, *,
+               lib=None):
     """``csrc/pool_score.cu``: exact BM25+ of B host-selected pools (see
     ``ops/pool_score.py``). ``pool`` int32 [B, Pp] ascending doc ids,
     ``pool_valid`` bool [B, Pp]; ``term_starts``/``term_lens`` int32 and
     ``term_idf`` f32, each [B, T], over the full base CSR of
     ``postings_docs`` (int32) / ``postings_weights`` (uint8);
     ``doc_lengths`` f32 [n_pad] (every pool id below n_pad); ``avgdl`` a
-    one-element f32 tensor. Returns f32 scores [B, Pp]. One launch."""
+    one-element f32 tensor. Returns f32 scores [B, Pp]. One launch, of
+    ``lib``'s kernel when given (as in ``coverage_lcs``), else the
+    port's."""
     dev = pool.device
     if dev.type != "cuda":
         raise ValueError("pool_score: CUDA tensors required")
@@ -291,7 +299,7 @@ def pool_score(pool, pool_valid, term_starts, term_lens, term_idf,
     build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.pool_score(
+        rc = (lib or _lib).pool_score(
             pool.data_ptr(), pool_valid.data_ptr(), term_starts.data_ptr(),
             term_lens.data_ptr(), term_idf.data_ptr(), n_jobs, p_pad, t_pad,
             postings_docs.data_ptr(), postings_docs.numel(),
@@ -424,7 +432,7 @@ def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
 
 
 def coverage_lcs(text_chars, lcs_ok, q_text, q_text_len, q_lcs_tol, q_lcs_ok,
-                 text_ids, qsel, text_len, lcs_vals):
+                 text_ids, qsel, text_len, lcs_vals, *, lib=None):
     """``csrc/coverage_lcs.cu``: the device fake-LCS of one coverage block
     (see ``ops/coverage_kernel.py coverage_lcs``). ``text_chars`` int32
     [N, T], ``lcs_ok`` bool [N]; ``q_text`` int32 [B, QT] (QT <= T, as the
@@ -432,7 +440,8 @@ def coverage_lcs(text_chars, lcs_ok, q_text, q_text_len, q_lcs_tol, q_lcs_ok,
     first QT units), ``q_text_len``, ``q_lcs_tol`` int32 and ``q_lcs_ok``
     bool [B]; ``text_ids`` (each below N) and ``qsel`` (each below B)
     int64, ``text_len`` int32 and ``lcs_vals`` f32 [C]; all contiguous.
-    Returns f32 [C]. One launch."""
+    Returns f32 [C]. One launch, of ``lib``'s kernel when given (a library
+    of the same C interface, bound by ``bind``), else the port's."""
     dev = text_ids.device
     if dev.type != "cuda":
         raise ValueError("coverage_lcs: CUDA tensors required")
@@ -460,7 +469,7 @@ def coverage_lcs(text_chars, lcs_ok, q_text, q_text_len, q_lcs_tol, q_lcs_ok,
     build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.coverage_lcs(
+        rc = (lib or _lib).coverage_lcs(
             text_chars.data_ptr(), lcs_ok.data_ptr(), q_text.data_ptr(),
             q_text_len.data_ptr(), q_lcs_tol.data_ptr(), q_lcs_ok.data_ptr(),
             text_ids.data_ptr(), qsel.data_ptr(), text_len.data_ptr(),
@@ -473,7 +482,7 @@ def coverage_lcs(text_chars, lcs_ok, q_text, q_text_len, q_lcs_tol, q_lcs_ok,
 
 
 def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
-                    base_scores, config, packed_lcs: bool):
+                    base_scores, config, packed_lcs: bool, *, lib=None):
     """``csrc/coverage_fusion.cu``: the scorer + fusion program of one
     coverage block and its pack (see ``ops/coverage_kernel.py
     coverage_fusion``). ``state`` is the cascade kernel's result
@@ -490,7 +499,9 @@ def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
     contiguous; it is built for the pair kernel's char widths
     (``PAIR_CHAR_WIDTHS``) and the cascade's doc-token and query-token
     widths (``CASCADE_DOC_WIDTHS``, Q and FQ up to ``CASCADE_Q_MAX``).
-    Returns f32 [2, C] with ``packed_lcs``, else [3, C]. One launch."""
+    Returns f32 [2, C] with ``packed_lcs``, else [3, C]. One launch, of
+    ``lib``'s kernel when given (as in ``coverage_lcs``), else the
+    port's."""
     dev = pairs.device
     if dev.type != "cuda":
         raise ValueError("coverage_fusion: CUDA tensors required")
@@ -551,9 +562,9 @@ def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
             base_scores)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.coverage_fusion(*(t.data_ptr() for t in args), n_q, n_fq,
-                                  n_l, n_d, n_c, cfg, int(bool(packed_lcs)),
-                                  out.data_ptr(), stream)
+        rc = (lib or _lib).coverage_fusion(
+            *(t.data_ptr() for t in args), n_q, n_fq, n_l, n_d, n_c, cfg,
+            int(bool(packed_lcs)), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("coverage_fusion launch failed: "
                            + _lib.stage1_error_string(rc).decode())

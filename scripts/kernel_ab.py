@@ -2,7 +2,8 @@
 one run.
 
     python3 scripts/kernel_ab.py [--old-csrc DIR] [--old-pool-csrc DIR]
-                                 [--old-edit-csrc DIR] [--out DIR] [--reps N]
+                                 [--old-edit-csrc DIR] [--old-cov-csrc DIR]
+                                 [--out DIR] [--reps N]
 
 ``--old-csrc`` holds the earlier lane and match kernels
 (``stage1_lanes.cu`` and ``fuzzy_match.cu`` with the C interfaces of
@@ -15,7 +16,13 @@ interface as today's); ``--old-edit-csrc`` the earlier edit-distance
 kernel (``edit_distances.cu`` and ``edit_distances_cell.cuh`` of commit
 ce4e9c9: one thread per (query token, doc token, candidate), five int32
 tensors out), e.g. ``git archive ce4e9c9 infidex_tpu_torch/csrc |
-tar -x --strip-components=2 -C build/old_edit``. Only the pairs whose directory is given run. The
+tar -x --strip-components=2 -C build/old_edit``; ``--old-cov-csrc`` the
+earlier fake-LCS and fusion kernels (``coverage_lcs.cu``,
+``coverage_lcs_cell.cuh``, ``coverage_fusion.cu`` and
+``coverage_fusion_cell.cuh`` of commit 705596b: one thread per candidate;
+same C interfaces as today's), e.g. ``git archive 705596b
+infidex_tpu_torch/csrc | tar -x --strip-components=2 -C build/old_cov``.
+Only the pairs whose directory is given run. The
 script builds the old sources with the same ``nvcc`` flags as the port's
 library, then, on one card:
 
@@ -36,6 +43,12 @@ library, then, on one card:
   beside it. Besides the times of calls in turns, each kernel's device
   time alone (torch.profiler).
 
+* cov: the same blocks as edit, for the fake-LCS and the fusion kernel
+  (``csrc/coverage_lcs.cu``, ``csrc/coverage_fusion.cu``): the earlier
+  design beside today's, each kernel's device time alone (torch.profiler)
+  in turns as well, and the registers, spills and shared memory
+  ``nvcc -Xptxas=-v`` reports for both designs' kernels.
+
 The pool part also reports how long the narrowed ranges of the run's
 tiles are.
 
@@ -48,6 +61,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,17 +72,115 @@ sys.path.insert(0, ROOT)
 BATCH = 128
 
 
-def _nvcc_old(src_dir: str, names, out_dir: str, so_name: str):
+def _nvcc_old(src_dir: str, names, out_dir: str, so_name: str,
+              ptxas: list = None):
+    """``names`` of ``src_dir`` built with the port's nvcc flags; with a
+    list for ``ptxas``, ``-Xptxas=-v`` too, its report appended there."""
     from infidex_tpu_torch.ops import _kernels
 
     so = os.path.join(out_dir, so_name)
     os.makedirs(out_dir, exist_ok=True)
-    res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so,
+    verbose = ["-Xptxas=-v"] if ptxas is not None else []
+    res = subprocess.run([_kernels._nvcc(), *verbose, *_kernels.NVCC_FLAGS,
+                          "-o", so,
                           *(os.path.join(src_dir, f) for f in names)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+    if ptxas is not None:
+        ptxas.append(res.stdout + res.stderr)
     return ctypes.CDLL(so)
+
+
+COV_SOURCES = ("coverage_lcs.cu", "coverage_fusion.cu")
+
+
+def kernel_resources(report: str) -> dict:
+    """Registers, spill bytes and static shared memory of each fake-LCS and
+    fusion kernel in an ``nvcc -Xptxas=-v`` report, by kernel (the fusion
+    kernel's (L, D) template arguments in the name)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = None
+            for kernel in ("coverage_lcs_kernel", "coverage_fusion_kernel"):
+                if kernel in m.group(1):
+                    args = re.findall(r"Li(\d+)E", m.group(1))
+                    name = kernel + (f"<{', '.join(args)}>" if args else "")
+            continue
+        if name is None:
+            continue
+        row = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            row["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def build_old_cov(src_dir: str, out_dir: str):
+    """The earlier fake-LCS and fusion kernels (today's C interfaces), and
+    the ptxas resources of both designs' kernels."""
+    from infidex_tpu_torch.ops import _kernels
+
+    reports = []
+    lib = _kernels.bind(_nvcc_old(src_dir, COV_SOURCES, out_dir,
+                                  "libinfidex_cov_old.so", reports))
+    _nvcc_old(_kernels._CSRC, COV_SOURCES, out_dir, "libinfidex_cov_new.so",
+              reports)
+    return lib, {"old": kernel_resources(reports[0]),
+                 "new": kernel_resources(reports[1])}
+
+
+def cov_ab(torch, cs, it, bench, runtime, eng, queries, lib,
+           reps: int) -> dict:
+    """The earlier fake-LCS and fusion kernels beside today's on the first
+    coverage block of every shape of a bench batch and of chip_smoke.py's
+    long-title batches: equal bits, then events and device times (the
+    kernel alone, torch.profiler), each in turns old, new, new, old."""
+    from infidex_tpu_torch.ops import _kernels
+
+    bench_spy = cs.first_block_args(torch, it, eng, queries)
+    long_spy, _ = cs.long_titles_phase(torch, it, runtime, bench, _kernels)
+    out = {}
+    for name, which, kernel in (
+            ("coverage_lcs", "lcs", "coverage_lcs_kernel"),
+            ("coverage_fusion", "fusion", "coverage_fusion_kernel")):
+        by_block = {}
+        wrapper = getattr(_kernels, name)
+        for label, _, shape, a in cs.kernel_blocks(bench_spy, long_spy,
+                                                   which):
+            # both through the port's wrapper: the same checks either side
+            fns = {"old": lambda a=a: wrapper(*a, lib=lib),
+                   "new": lambda a=a: wrapper(*a)}
+            old, new = fns["old"](), fns["new"]()
+            torch.cuda.synchronize()
+            same = torch.equal(old.view(torch.int32), new.view(torch.int32))
+            times = in_turns(torch, cs, fns, reps)
+            launches = []
+            dev = cs.device_ms_each(torch, [fns[k] for k in (
+                "old", "new", "new", "old")], kernel, reps, launches)
+            by_block[label] = dict(
+                shape=list(shape), candidates=int(new.shape[-1]),
+                bit_equal=bool(same), ms=times,
+                device_ms={"old": [dev[0], dev[3]], "new": dev[1:3]},
+                launch={"old": launches[0], "new": launches[1]})
+            print(f"[cov] {name}, {label} (C {new.shape[-1]}): bit-equal "
+                  f"{same}; device ms old {dev[0]:.4f}, {dev[3]:.4f}, new "
+                  f"{dev[1]:.4f}, {dev[2]:.4f}; events ms old "
+                  f"{times['old'][0]:.4f}, {times['old'][1]:.4f}, new "
+                  f"{times['new'][0]:.4f}, {times['new'][1]:.4f}; launch "
+                  f"old {launches[0]}, new {launches[1]}", flush=True)
+        out[name] = by_block
+    return dict(bit_equal=all(b["bit_equal"] for v in out.values()
+                              for b in v.values()), **out)
 
 
 def build_old(src_dir: str, out_dir: str):
@@ -86,13 +198,10 @@ def build_old(src_dir: str, out_dir: str):
 
 def build_old_pool(src_dir: str, out_dir: str):
     """The earlier pool kernel (today's C interface)."""
-    lib = _nvcc_old(src_dir, ("pool_score.cu",), out_dir,
-                    "libinfidex_pool_old.so")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pool_score.argtypes = [p, p, p, p, p, i, i, i, p, ctypes.c_longlong,
-                               p, p, p, p, p]
-    lib.pool_score.restype = i
-    return lib
+    from infidex_tpu_torch.ops import _kernels
+
+    return _kernels.bind(_nvcc_old(src_dir, ("pool_score.cu",), out_dir,
+                                   "libinfidex_pool_old.so"))
 
 
 def build_old_edit(src_dir: str, out_dir: str):
@@ -155,20 +264,6 @@ def edit_ab(torch, cs, it, bench, runtime, eng, queries, lib,
                           bit_equal=bool(same), ms=times, device_ms=device)
     return dict(bit_equal=all(v["bit_equal"] for v in out.values()),
                 by_block=out)
-
-
-def old_pool(torch, lib, pool, valid, starts, lens, idf, docs, weights,
-             doc_lengths, avgdl):
-    out = torch.empty(pool.shape, dtype=torch.float32, device=pool.device)
-    rc = lib.pool_score(pool.data_ptr(), valid.data_ptr(), starts.data_ptr(),
-                        lens.data_ptr(), idf.data_ptr(), pool.shape[0],
-                        pool.shape[1], starts.shape[1], docs.data_ptr(),
-                        docs.numel(), weights.data_ptr(),
-                        doc_lengths.data_ptr(), avgdl.data_ptr(),
-                        out.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-    assert rc == 0, rc
-    return out
 
 
 def old_lanes(torch, lib, scores, cnt, ranked, docs, cfac) -> None:
@@ -243,13 +338,13 @@ def narrowed_ranges(built, jobs, tile: int = 256) -> dict:
 
 def pool_ab(torch, cs, it, eng, queries, lib, reps: int) -> dict:
     from infidex_tpu_torch.ops import _kernels
-    from infidex_tpu_torch.ops import pool_score as ps
 
     jobs, _, _, _ = cs.serve_pool_batches(torch, it, eng, queries, _kernels)
     args = eng.vector_model.device.pool_args(jobs)
     args = (*args[:-1], args[-1].reshape(1))
-    fns = {"old": lambda: old_pool(torch, lib, *args),
-           "new": lambda: ps.pool_score(*args)}
+    # both through the port's wrapper: the same checks on either side
+    fns = {"old": lambda: _kernels.pool_score(*args, lib=lib),
+           "new": lambda: _kernels.pool_score(*args)}
     old, new = (fns[name]().view(torch.int32) for name in ("old", "new"))
     torch.cuda.synchronize()
     times = in_turns(torch, cs, fns, reps)
@@ -329,6 +424,7 @@ def main(argv=None) -> int:
     ap.add_argument("--old-csrc")
     ap.add_argument("--old-pool-csrc")
     ap.add_argument("--old-edit-csrc")
+    ap.add_argument("--old-cov-csrc")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -347,10 +443,18 @@ def main(argv=None) -> int:
     runtime.set_device("cuda")
     card = cs.nvidia_smi_line()
     _kernels.build()
-    if not (args.old_csrc or args.old_pool_csrc or args.old_edit_csrc):
-        ap.error("give --old-csrc, --old-pool-csrc or --old-edit-csrc")
+    if not (args.old_csrc or args.old_pool_csrc or args.old_edit_csrc
+            or args.old_cov_csrc):
+        ap.error("give --old-csrc, --old-pool-csrc, --old-edit-csrc or "
+                 "--old-cov-csrc")
     result = dict(card=card, torch=torch.__version__)
     eng, queries = bench_engine(cs, it, bench)
+    if args.old_cov_csrc:
+        lib, resources = build_old_cov(args.old_cov_csrc, args.out)
+        print(f"[cov] ptxas: {json.dumps(resources)}", flush=True)
+        result["cov"] = cov_ab(torch, cs, it, bench, runtime, eng, queries,
+                               lib, args.reps)
+        result["cov"]["resources"] = resources
     if args.old_edit_csrc:
         lib = build_old_edit(args.old_edit_csrc, args.out)
         result["edit"] = edit_ab(torch, cs, it, bench, runtime, eng, queries,

@@ -3,10 +3,13 @@
 
 * the CUDA kernel's per-candidate code (csrc/coverage_lcs_cell.cuh, the
   header csrc/coverage_lcs.cu includes), compiled for the host with g++ and
-  run over every candidate, against the plain PyTorch version
+  run over every candidate by a group of lanes (the kernel's warp of 32,
+  and groups of 8 and 1; csrc/lane_group.cuh runs a group as a loop over
+  its lanes on the host), against the plain PyTorch version
   ``coverage_lcs_plain``: equal on every candidate (integers until the last
   cast, tolerance 0), the host value kept where the doc or the query is not
-  eligible;
+  eligible; also on hand-made candidates whose containments and first
+  mismatches lie past lane 31;
 * the same code against the JAX package's host LCS (utils/metrics.py
   ``lcs``) and its device program (tests/test_device_lcs.py) on every
   eligible (doc, query) pair;
@@ -60,36 +63,62 @@ def compile_cell(tmp_path_factory, name: str, source: str):
 
 
 _HOST_LOOP = r"""
+#include <vector>
 #include "coverage_lcs_cell.cuh"
-extern "C" void coverage_lcs_host(const int* text_chars,
+// a unit of the scratch that the group did not copy reads as this: no char
+template <int G>
+static void run(const int* text_chars, const unsigned char* lcs_ok,
+    const int* q_text, const int* q_text_len, const int* q_tol,
+    const unsigned char* q_ok, const long long* text_ids,
+    const long long* qsel, const int* text_len, const float* lcs_in,
+    int t_cap, int qt_cap, int n_c, float* out) {
+  std::vector<int> scratch(lcs::scratch_ints(t_cap, qt_cap));
+  const grp::Group<G> g;
+  for (int c = 0; c < n_c; ++c) {
+    scratch.assign(scratch.size(), 0x7f7f7f7f);
+    out[c] = lcs::candidate(g, scratch.data(), text_chars, lcs_ok, q_text,
+                            q_text_len, q_tol, q_ok, text_ids, qsel,
+                            text_len, lcs_in, t_cap, qt_cap, c);
+  }
+}
+extern "C" int coverage_lcs_host(const int* text_chars,
     const unsigned char* lcs_ok, const int* q_text, const int* q_text_len,
     const int* q_tol, const unsigned char* q_ok, const long long* text_ids,
     const long long* qsel, const int* text_len, const float* lcs_in, int t_cap,
-    int qt_cap, int n_c, float* out) {
-  for (int c = 0; c < n_c; ++c) {
-    out[c] = lcs::candidate(text_chars, lcs_ok, q_text, q_text_len, q_tol,
-                            q_ok, text_ids, qsel, text_len, lcs_in, t_cap,
-                            qt_cap, c);
-  }
+    int qt_cap, int n_c, float* out, int lanes) {
+#define LCS_RUN(G) run<G>(text_chars, lcs_ok, q_text, q_text_len, q_tol, \
+    q_ok, text_ids, qsel, text_len, lcs_in, t_cap, qt_cap, n_c, out)
+  if (lanes == 32) LCS_RUN(32);
+  else if (lanes == 8) LCS_RUN(8);
+  else if (lanes == 1) LCS_RUN(1);
+  else return 1;
+  return 0;
 }
 """
+
+#: lanes of the kernel's group (a warp), and two other group sizes the host
+#: build runs the same code with
+KERNEL_LANES = 32
+LANES = (KERNEL_LANES, 8, 1)
 
 
 @pytest.fixture(scope="module")
 def host_lcs(tmp_path_factory):
     """csrc/coverage_lcs_cell.cuh behind a loop over the candidates, in the
-    kernel's own addressing; takes ``coverage_lcs``'s arguments."""
+    kernel's own addressing, a group of ``lanes`` lanes (a loop over them)
+    per candidate; takes ``coverage_lcs``'s arguments."""
     lib = compile_cell(tmp_path_factory, "lcs_cell", _HOST_LOOP)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.coverage_lcs_host.argtypes = [p] * 10 + [i] * 3 + [p]
-    lib.coverage_lcs_host.restype = None
+    lib.coverage_lcs_host.argtypes = [p] * 10 + [i] * 3 + [p, i]
+    lib.coverage_lcs_host.restype = i
 
-    def run(args):
+    def run(args, lanes=KERNEL_LANES):
         arrays = [np.ascontiguousarray(t.numpy()) for t in args]
         n_t, n_qt, n_c = arrays[0].shape[1], arrays[2].shape[1], len(arrays[6])
         out = np.full(n_c, -7.0, np.float32)
-        lib.coverage_lcs_host(*(a.ctypes.data for a in arrays), n_t, n_qt,
-                              n_c, out.ctypes.data)
+        rc = lib.coverage_lcs_host(*(a.ctypes.data for a in arrays), n_t,
+                                   n_qt, n_c, out.ctypes.data, lanes)
+        assert rc == 0
         return torch.from_numpy(out)
 
     return run
@@ -199,6 +228,99 @@ def test_lcs_cell_code_equals_the_host_lcs_and_the_jax_program(host_lcs):
                                                          lower[d], tol)
             else:
                 assert got[r] == -1.0
+
+
+def _units(s):
+    return [ord(ch) for ch in s]
+
+
+def hand_block(t_cap, qt_cap, seed=11):
+    """``coverage_lcs``'s arguments for hand-made candidates that make a
+    group's lanes loop: containments and first mismatches at offsets past
+    lane 31, queries longer than their texts, texts longer than their rows
+    (zeros past the row's end), empty texts and queries, ineligible docs
+    and queries. Returns the arguments and the case names."""
+    rng = random.Random(seed)
+    text = lambda n: "".join(rng.choice("abcdef") for _ in range(n))
+    long_text = text(t_cap)
+    cases = []            # (name, text units, text_len, query units, qtl,
+    #                        tol, doc ok, query ok)
+
+    def add(name, t, q, tol=1, doc_ok=True, q_ok=True, t_len=None,
+            q_len=None):
+        cases.append((name, t, len(t) if t_len is None else t_len, q,
+                      len(q) if q_len is None else q_len, tol, doc_ok, q_ok))
+
+    for at in (0, 31, 32, 40, 63, 64, t_cap - 20):
+        if at + 12 <= t_cap:
+            add(f"contained_at_{at}", _units(long_text),
+                _units(long_text[at:at + 12]))
+    short = long_text[:50]
+    add("contained_at_the_last_offset", _units(short), _units(short[-9:]))
+    add("query_longer_than_text", _units("abcab"), _units("abcabcab"))
+    add("query_longer_than_text_mismatch", _units("abcab"), _units("abdab"),
+        tol=2)
+    if qt_cap > 40:
+        add("first_mismatch_past_lane_31", _units(long_text[:120]),
+            _units(long_text[:37] + "z" + long_text[38:50]), tol=3)
+        add("whole_prefix_past_lane_31", _units(long_text[:45]),
+            _units(long_text[:44] + "zz"), tol=0)
+    add("no_common_prefix", _units(long_text[:60]), _units("zzzz"))
+    # the row's last units, then zeros: the text runs on past the row
+    tail = _units(long_text[-2:]) + [0, 0]
+    add("text_past_the_row", _units(long_text), tail, t_len=t_cap + 9)
+    add("empty_text", [], _units("abc"))
+    add("empty_query", _units(long_text[:20]), [])
+    add("doc_not_eligible", _units(short), _units(short[5:9]), doc_ok=False)
+    add("query_not_eligible", _units(short), _units(short[5:9]),
+        q_ok=False)
+    n = len(cases)
+    rows = np.zeros((n, t_cap), np.int32)
+    qrows = np.zeros((n, qt_cap), np.int32)
+    for r, (_, t, _, q, _, _, _, _) in enumerate(cases):
+        rows[r, :min(len(t), t_cap)] = t[:t_cap]
+        qrows[r, :min(len(q), qt_cap)] = q[:qt_cap]
+    col = lambda k, dt: torch.from_numpy(np.array([c[k] for c in cases], dt))
+    args = (torch.from_numpy(rows), col(6, bool), torch.from_numpy(qrows),
+            col(4, np.int32), col(5, np.int32), col(7, bool),
+            torch.arange(n, dtype=torch.int64),
+            torch.arange(n, dtype=torch.int64), col(2, np.int32),
+            torch.full((n,), 5.0))
+    return args, [c[0] for c in cases]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("qt", [16, 64])
+@pytest.mark.parametrize("t_cap", [64, 256])
+def test_lane_groups_equal_the_plain_version(host_lcs, t_cap, qt, lanes):
+    """The hand-made candidates with the kernel's group of 32 lanes and
+    with groups of 8 and 1: equal to the plain version (tolerance 0)."""
+    args, names = hand_block(t_cap, qt)
+    want = ck.coverage_lcs_plain(*args)
+    got = host_lcs(args, lanes)
+    bad = [(n, float(g), float(w)) for n, g, w in zip(names, got, want)
+           if g.view(torch.int32) != w.view(torch.int32)]
+    assert not bad
+    by_name = dict(zip(names, want.tolist()))
+    for name, v in by_name.items():
+        if name.startswith("contained"):
+            assert v == int(args[3][names.index(name)]), name
+    assert by_name["text_past_the_row"] == 4
+    assert by_name["doc_not_eligible"] == by_name["query_not_eligible"] == 5
+    assert by_name["empty_text"] == by_name["empty_query"] == 0
+    assert by_name["query_longer_than_text"] == 5
+    if qt > 40:
+        assert by_name["first_mismatch_past_lane_31"] == 37 + 3
+        assert by_name["whole_prefix_past_lane_31"] == 44
+
+
+@pytest.mark.parametrize("lanes", LANES[1:])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_smaller_groups_equal_the_plain_version(host_lcs, width, lanes):
+    """The seeded blocks with groups of 8 and 1 lanes: the same values."""
+    args, _, _ = make_block(4, WIDTHS[width], 64)
+    assert torch.equal(host_lcs(args, lanes).view(torch.int32),
+                       ck.coverage_lcs_plain(*args).view(torch.int32))
 
 
 def test_cpu_tensors_never_reach_the_kernel_wrapper(monkeypatch):

@@ -3,14 +3,18 @@
 
 * the CUDA kernel's per-candidate code (csrc/coverage_fusion_cell.cuh, the
   header csrc/coverage_fusion.cu includes), compiled for the host with g++
-  -ffp-contract=off and run over every candidate, against the plain
-  PyTorch version ``coverage_fusion_plain``: both rows of both layouts
-  ([2, C] with the packed LCS, [3, C] without) equal bit for bit
-  (tolerance 0), and every fusion signal equal to the plain
-  ``_fusion_signals``;
+  -ffp-contract=off and run as the kernel runs it (each tile of 8
+  candidates copied into a scratch, then a group of min(D, 32) lanes per
+  candidate, which csrc/lane_group.cuh runs as a loop over its lanes on the
+  host), against the plain PyTorch version ``coverage_fusion_plain``: both
+  rows of both layouts ([2, C] with the packed LCS, [3, C] without) equal
+  bit for bit (tolerance 0), and every fusion signal equal to the plain
+  ``_fusion_signals``; at every group width with docs of no tokens and of
+  D tokens;
 * hand-made candidates for the edge cases: no, one and several fusion
-  tokens, no doc tokens, an empty query word, no idf, an empty text, and
-  each signal on its own;
+  tokens, no doc tokens, an empty query word, no idf, an empty text, each
+  signal on its own, and query-token sums whose last bit depends on their
+  order;
 * a reach test: on the seeded inputs every fusion signal and every
   precedence bit is set on some candidate and clear on another;
 * on a card, the kernel against the plain version: the same.
@@ -208,10 +212,50 @@ def _set_query(a, c, words):
                                           key=lambda i: -len(words[i]))
 
 
-def make_block(seed, Q, FQ, L, D, config=BASE, n_c=C):
+def _extreme_docs(a, rng, L, D):
+    """Every third candidate loses its doc tokens (tok_count 0) and every
+    third gets all D, its query words taken from its last six tokens: at D
+    64, tokens that a group's lanes reach in their second round."""
+    Q, n_c = a["ql"].shape
+    vocab, base = {}, int(a["codes"].max()) + 1
+    for c in range(n_c):
+        if c % 3 == 2:
+            continue
+        for k in ("dc", "dr"):
+            a[k][..., c] = 0
+        a["dl"][:, c] = 0
+        a["codes"][:, c] = -1
+        a["offsets"][:, c] = 0
+        a["tok_count"][c] = 0
+        if c % 3 == 0:
+            continue
+        words = [TC._word(rng, 1, min(L, 9)) for _ in range(D)]
+        pos = 0
+        for d, w in enumerate(words):
+            a["offsets"][d, c] = pos
+            pos += len(w) + 1
+            a["codes"][d, c] = vocab.setdefault(tuple(w), base + len(vocab))
+            a["dl"][d, c] = len(w)
+            a["dc"][:len(w), d, c] = w
+            a["dr"][:len(w), d, c] = w[::-1]
+        a["tok_count"][c] = D
+        tail = np.arange(max(D - 6, 0), D)
+        picks = np.sort(rng.choice(tail, int(rng.integers(1, min(Q, 6) + 1)),
+                                   replace=False))
+        qwords = [list(words[d]) for d in picks]
+        if rng.integers(2):
+            qwords[-1] = qwords[-1][:max(1, len(qwords[-1]) - 1)]
+        _set_query(a, c, qwords)
+
+
+def make_block(seed, Q, FQ, L, D, config=BASE, n_c=C, extremes=False):
+    """A seeded block; with ``extremes``, a third of its candidates without
+    doc tokens and a third with all D (``_extreme_docs``)."""
     rng = np.random.default_rng(seed)
     a = TC.make_inputs(seed, Q, L, D, n_c)
     a["fq_width"] = FQ
+    if extremes:
+        _extreme_docs(a, rng, L, D)
     fq_words = []
     for c in range(n_c):
         qwords = [list(a["qc"][q, :a["ql"][q, c], c])
@@ -234,17 +278,33 @@ def make_block(seed, Q, FQ, L, D, config=BASE, n_c=C):
 
 
 _HOST_LOOP = r"""
+#include <cstring>
+#include <vector>
 #include "coverage_fusion_cell.cuh"
+// The kernel's steps for each tile of candidates: the tile's rows copied
+// into a scratch that starts out as 0x7f bytes (a row the copy skipped
+// reads as that), then each candidate by a group of G lanes (a loop over
+// them), from the tile.
 template <int L, int D>
 static void run(const fusion::Args& a, int* sig) {
-  for (int c = 0; c < a.n_c; ++c) {
-    fusion::run<L, D>(a, c);
-    const fusion::Signals s =
-        fusion::fusion_signals<L, D>(fusion::load<L>(a, c), a.cfg);
-    const int v[7] = {s.lexical_prefix_last, s.perfect_doc, s.stem_evidence,
-                      s.anchor_stem, s.trailing_density, s.single_sim,
-                      s.single_char_boost};
-    for (int k = 0; k < 7; ++k) sig[k * a.n_c + c] = v[k];
+  constexpr int G = D < 32 ? D : 32;
+  const fusion::Layout y = fusion::layout<D>(a.n_q, a.n_fq);
+  std::vector<int> tile((y.bytes + 3) / 4);
+  const grp::Group<G> g;
+  for (int c0 = 0; c0 < a.n_c; c0 += fusion::kTile) {
+    std::memset(tile.data(), 0x7f, 4 * tile.size());
+    fusion::stage<D>(a, c0, 0, 1, tile.data());
+    for (int t = 0; t < fusion::kTile && c0 + t < a.n_c; ++t) {
+      const fusion::In in = fusion::tile_in<L, D>(a, tile.data(), c0, t);
+      const int c = c0 + t;
+      fusion::candidate<L, D, G>(g, in, a.cfg, a.packed_lcs != 0, a.out + c,
+                                 a.n_c);
+      const fusion::Signals s = fusion::fusion_signals<L, D, G>(g, in, a.cfg);
+      const int v[7] = {s.lexical_prefix_last, s.perfect_doc,
+                        s.stem_evidence, s.anchor_stem, s.trailing_density,
+                        s.single_sim, s.single_char_boost};
+      for (int k = 0; k < 7; ++k) sig[k * a.n_c + c] = v[k];
+    }
   }
 }
 extern "C" int coverage_fusion_host(
@@ -363,6 +423,28 @@ def test_inputs_reach_every_signal_and_precedence_bit(host_fusion, shape):
         assert on.any() and not on.all(), bit
 
 
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_lane_groups_at_token_counts_0_and_d(host_fusion, shape):
+    """Each group width (8, 16 and 32 lanes at D 8, 16 and 64) with a third
+    of the candidates at tok_count 0 and a third at tok_count D whose query
+    words are their last tokens: bit-equal to the plain version, every
+    signal equal, and signals set on the full docs."""
+    Q, FQ, L, D = SHAPES[shape]
+    blk = make_block(_seed(shape, "default") + 31, Q, FQ, L, D, n_c=3 * C,
+                     extremes=True)
+    tok = blk.doc[5]
+    assert (tok == 0).sum() >= C and (tok == D).sum() >= C
+    for packed_lcs in (True, False):
+        got, sig = host_fusion(blk, packed_lcs)
+        assert_bits_equal(got, blk.plain(packed_lcs))
+    want_sig = blk.plain_signals()
+    assert torch.equal(sig, want_sig)
+    full = tok == D
+    for name in ("lexical_prefix_last", "has_anchor_stem"):
+        assert want_sig[SIGNALS.index(name), full].any(), name
+    assert not want_sig[:, tok == 0].any()                 # no doc: none
+
+
 # --- hand-made candidates -----------------------------------------------------
 
 
@@ -446,6 +528,38 @@ def test_known_candidates(host_fusion, case):
     if kw.get("text_len") == 0 or n_tokens < 2:
         assert out[1, 0] == 0                     # no tiebreaker
     assert np.isfinite(out.numpy()).all()
+
+
+def test_query_token_sums_keep_their_order(host_fusion):
+    """One fusion token of two chars and four query tokens, covered
+    0, 1, 1 and 1/3 (term_matched 0, 5, 4, 2 of 4, 5, 4, 6 chars), nothing
+    strict or prefix: the score is sum_ci / 4 / 2 exactly. Summed from 0 in
+    token order, sum_ci is 2.3333333; in reverse order, or as a pairwise
+    tree, 2.3333335. The cell's score is the plain version's, the
+    in-order one."""
+    blk = _candidate(["alphabet", "omega", "beta", "gamma"],
+                     ["zzzz", "omega", "beta", "gammaa"], ["om"],
+                     q_idf=1.0, base=0.0)
+    f32 = np.float32
+    tm = torch.tensor([[0.0], [5.0], [4.0], [2.0]])
+    flags = torch.zeros((4, 1), dtype=torch.bool)
+    state = list(blk.state)
+    state[:5] = [tm, flags, flags, flags, torch.full((4, 1), -1, dtype=torch.int32)]
+    blk.state = tuple(state)
+    ci = [f32(0), f32(1), f32(1), f32(2) / f32(6)]
+    in_order = f32(0)
+    for x in ci:
+        in_order = f32(in_order + x)
+    reverse = f32(0)
+    for x in ci[::-1]:
+        reverse = f32(reverse + x)
+    tree = f32(f32(ci[0] + ci[1]) + f32(ci[2] + ci[3]))
+    assert in_order != reverse and in_order != tree
+    want = blk.plain(True)
+    assert want[0, 0].item() == float(in_order / f32(4) / f32(2))
+    for packed_lcs in (True, False):
+        got, _ = host_fusion(blk, packed_lcs)
+        assert_bits_equal(got, blk.plain(packed_lcs))
 
 
 def test_cpu_tensors_never_reach_the_kernel_wrapper(monkeypatch):
