@@ -21,17 +21,18 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      the bench corpus lacks: 200 of them served on the CPU and on the
      card (identical ids and scores), 20,000 on the card, whose coverage
      blocks are counted by shape (Q, L, D): the small, narrow and wide
-     classes must all occur. Then the pair kernel (word relations and
-     edit distances in one packed word), the cascade kernel (the four
+     classes must all occur. Then the gather kernel (the block's rows of
+     the query and doc tables), the pair kernel (word relations and edit
+     distances in one packed word), the cascade kernel (the four
      matchers), the fake-LCS kernel and the fusion kernel (CoverageScorer,
      fusion signals, FusionScorer and the pack), each against its plain
      version on the first coverage block of every shape of a bench batch
      and of the long-title batches: every output equal (f32 bit for bit),
-     two identical runs, one launch per call (and, for the fake-LCS and
-     fusion kernels, the launch's blocks, threads a block, candidates a
-     warp, registers and shared memory, as the profiler's trace recorded
+     two identical runs, one launch per call (and, for all but the pair
+     kernel, the launch's blocks, threads a block, candidates a warp,
+     registers and shared memory, as the profiler's trace recorded
      them), the kernel's device time
-     (torch.profiler, one session per kernel over all its blocks) and its
+     (torch.profiler, one session per kernel and block) and its
      CUDA-event time per back-to-back call beside the bound and one run of
      the plain version in each of two turns.
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
@@ -43,8 +44,10 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
   4. Main path: ``search_batch`` on two batches of 128 bench queries and
      ``search_many`` over 256, with the kernels' launch counts reset just
      before and read just after; the lane kernel must have launched, the
-     cascade, fake-LCS and fusion kernels once and the pair kernel twice
-     per coverage block.
+     gather, cascade, fake-LCS and fusion kernels once and the pair
+     kernel twice per coverage block (so on every other path that serves
+     batches below: long titles, large vocabulary, segments, pool scoring
+     and sharded, whose [3, C] layout has no fake-LCS).
      Prints per-batch wall ms, queries per second, device calls, host
      fallbacks, peak device memory and the top hit of a typo query.
   5. ``--recall``: recall@10 against the depth oracle (bench.py's
@@ -173,37 +176,39 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
 def device_ms_each(torch, fns, kernel: str, reps: int,
                    launches: list = None):
     """Mean device milliseconds of the kernel whose name contains
-    ``kernel``, for each function of ``fns``, from one torch.profiler
-    session: the kernel alone, where ``cuda_ms`` (events around back-to-back
-    calls) also holds the wrapper's host time whenever that is the longer.
-    Each function (run once before) is run ``reps`` times in turn and
-    launches the kernel once a run, so the kernel's events in launch order
-    fall into one group of ``reps`` per function. With a list for
-    ``launches``, each group's launch as the profiler's trace recorded it
-    (grid, block, registers a thread, shared memory bytes; one for all the
-    group's launches) is appended there."""
+    ``kernel``, for each function of ``fns`` in turn, from a torch.profiler
+    session of its own: the kernel alone, where ``cuda_ms`` (events around
+    back-to-back calls) also holds the wrapper's host time whenever that is
+    the longer. Each function (run once before) is run ``reps`` times and
+    launches the kernel once a run. With a list for ``launches``, each
+    function's launch as the profiler's trace recorded it (grid, block,
+    registers a thread, shared memory bytes; one for all its launches) is
+    appended there. A session whose records miss any of its launches
+    fails the phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
+    out = []
+    for fn in fns:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and kernel in e.name),
-                    key=lambda e: e.time_range.start)
-    check(len(events) == reps * len(fns),
-          f"the profiler saw {len(events)} launches of {kernel}, not "
-          f"{reps} for each of {len(fns)} blocks")
-    if launches is not None:
-        traced = traced_launches(prof, kernel, reps)
-        check(len(traced) == len(fns), f"the profiler's trace holds "
-              f"{len(traced)} groups of {kernel} launches, not {len(fns)}")
-        launches.extend(traced)
-    return [sum(e.time_range.elapsed_us() for e in events[i:i + reps])
-            / reps / 1e3 for i in range(0, len(events), reps)]
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type
+                  == DeviceType.CUDA and kernel in e.name]
+        check(len(events) == reps,
+              f"the profiler saw {len(events)} launches of {kernel} in a "
+              f"session of {reps} calls (block {len(out) + 1} of "
+              f"{len(fns)})")
+        if launches is not None:
+            traced = traced_launches(prof, kernel, reps)
+            check(len(traced) == 1, f"the profiler's trace holds "
+                  f"{len(traced)} groups of {kernel} launches, not 1")
+            launches.extend(traced)
+        out.append(sum(e.time_range.elapsed_us() for e in events)
+                   / reps / 1e3)
+    return out
 
 
 def traced_launches(prof, kernel: str, reps: int) -> list:
@@ -234,6 +239,19 @@ def traced_launches(prof, kernel: str, reps: int) -> list:
               f"{launch}")
         out.append(launch)
     return out
+
+
+def geometry(launch: dict, n_c: int = 0) -> str:
+    """A traced launch (``traced_launches``) in words; with n_c, the
+    candidates a warp of a kernel over n_c candidates."""
+    grid, threads = launch["grid"], launch["block"][0]
+    blocks = grid[0] * grid[1] * grid[2]
+    per_warp = (f"{n_c / (blocks * -(-threads // 32)):.3f} candidates a "
+                f"warp, " if n_c else "")
+    return (f"{list(grid)} blocks of {threads} threads, {per_warp}"
+            f"{launch['registers per thread']} registers a thread, "
+            f"{launch['shared memory']} B of shared memory a block, by the "
+            f"profiler's trace")
 
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, dense, at its
@@ -443,21 +461,27 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
 class BlockSpy:
     """While active, records what the coverage program hands its kernels'
     dispatchers: per shape (Q, L, D) the arguments of the first block's
-    pair call with distances, of its relations-only pair call (the fusion
-    signals' query tokens), of its cascade, fake-LCS and fusion calls, and
-    how many blocks ran per shape."""
+    gather, of its pair call with distances, of its relations-only pair
+    call (the fusion signals' query tokens), of its cascade, fake-LCS and
+    fusion calls, and how many blocks ran per shape."""
 
     def __init__(self, ck):
         self.ck = ck
         self.pairs, self.fpairs, self.cascade, self.blocks = {}, {}, {}, {}
-        self.lcs, self.fusion = {}, {}
+        self.lcs, self.fusion, self.gather = {}, {}, {}
         self._block = threading.local()    # the shape of the block running
 
     def __enter__(self):
         ck = self.ck
-        self._orig = (ck.coverage_pairs, ck.coverage_cascade, ck.coverage_lcs,
-                      ck.coverage_fusion)
-        orig_pairs, orig_cascade, orig_lcs, orig_fusion = self._orig
+        self._orig = (ck.gather_block, ck.coverage_pairs, ck.coverage_cascade,
+                      ck.coverage_lcs, ck.coverage_fusion)
+        (orig_gather, orig_pairs, orig_cascade, orig_lcs,
+         orig_fusion) = self._orig
+
+        def gather_spy(*args):
+            self.gather.setdefault((args[1][0].shape[1], args[4], args[5]),
+                                   args)
+            return orig_gather(*args)
 
         def pairs_spy(*args, distances):
             shape = (args[0].shape[0], args[0].shape[1], args[3].shape[1])
@@ -480,13 +504,47 @@ class BlockSpy:
             self.fusion.setdefault(shape, args + (packed_lcs,))
             return orig_fusion(*args, packed_lcs=packed_lcs)
 
-        (ck.coverage_pairs, ck.coverage_cascade, ck.coverage_lcs,
-         ck.coverage_fusion) = pairs_spy, cascade_spy, lcs_spy, fusion_spy
+        (ck.gather_block, ck.coverage_pairs, ck.coverage_cascade,
+         ck.coverage_lcs, ck.coverage_fusion) = (
+            gather_spy, pairs_spy, cascade_spy, lcs_spy, fusion_spy)
         return self
 
     def __exit__(self, *exc):
-        (self.ck.coverage_pairs, self.ck.coverage_cascade,
-         self.ck.coverage_lcs, self.ck.coverage_fusion) = self._orig
+        (self.ck.gather_block, self.ck.coverage_pairs,
+         self.ck.coverage_cascade, self.ck.coverage_lcs,
+         self.ck.coverage_fusion) = self._orig
+
+
+class BlockCount:
+    """While active, counts the coverage program's row blocks (calls of
+    ``_coverage_block``)."""
+
+    def __init__(self, ck):
+        self.ck, self.n = ck, 0
+
+    def __enter__(self):
+        self._orig = self.ck._coverage_block
+
+        def count(*args, **kw):
+            self.n += 1
+            return self._orig(*args, **kw)
+
+        self.ck._coverage_block = count
+        return self
+
+    def __exit__(self, *exc):
+        self.ck._coverage_block = self._orig
+
+
+def check_per_block(counts, n_blocks: int, what: str, lcs: bool = True):
+    """One gather, cascade and fusion launch and two pair launches per
+    coverage block, and one fake-LCS launch where the layout has it (the
+    sharded [3, C] layout has none)."""
+    check(n_blocks > 0 and counts["coverage_gather"]
+          == counts["coverage_cascade"] == counts["coverage_fusion"]
+          == n_blocks and counts["coverage_pairs"] == 2 * n_blocks
+          and counts["coverage_lcs"] == (n_blocks if lcs else 0),
+          f"{what}: {counts} for {n_blocks} coverage blocks")
 
 
 def first_block_args(torch, it, eng, queries):
@@ -608,10 +666,7 @@ def long_titles_phase(torch, it, runtime, bench, _kernels):
     for d in (8, 16, 64):
         check(any(shape[2] == d for shape in spy.blocks),
               f"long titles: no coverage block of {d} doc tokens")
-    check(counts["coverage_cascade"] == counts["coverage_lcs"]
-          == counts["coverage_fusion"] == n_blocks
-          and counts["coverage_pairs"] == 2 * n_blocks,
-          f"long titles: {counts} for {n_blocks} coverage blocks")
+    check_per_block(counts, n_blocks, "long titles")
     return spy, counts
 
 
@@ -659,8 +714,8 @@ def in_turns(torch, plain_fn, kernel_fn, reps: int):
 
 def kernel_blocks(bench_spy, long_spy, which: str):
     """(label, origin, shape, args) of every block the two spies hold for
-    ``which`` ("pairs", "fpairs", "cascade", "lcs" or "fusion"): the bench
-    batch's, then the long-title batches'."""
+    ``which`` ("gather", "pairs", "fpairs", "cascade", "lcs" or "fusion"):
+    the bench batch's, then the long-title batches'."""
     out = []
     for origin, spy in (("bench", bench_spy), ("long titles", long_spy)):
         for shape, args in sorted(getattr(spy, which).items()):
@@ -736,6 +791,94 @@ def pair_phase(torch, bench_spy, long_spy, _kernels):
     return out
 
 
+def gather_bound(args, got):
+    """(bytes, bytes by input) the gather of these inputs must move: every
+    output written once (``got``, the plain version's fields; first_char is
+    a view of chars_t), and each input row it needs read once: the two ids
+    of each candidate, the rows of each distinct query (Q and FQ slots of
+    chars plain and reversed, lengths, the sorted order, the count), of
+    each distinct doc (D codes, offsets and adjacency flags, the token
+    count and text length), and the L chars (plain and reversed) and the
+    length of each distinct word that a valid token names."""
+    tables, queries, text_ids, qsel, n_l, n_d = args
+    n_q, n_fq = queries[0].shape[1], queries[7].shape[1]
+    n_c = text_ids.numel()
+    words = got.codes[got.all_valid].unique().numel()
+    reads = dict(
+        ids=16 * n_c,
+        queries=qsel.unique().numel() * 4 * (
+            2 * n_q * n_l + 2 * n_q + 1 + 2 * n_fq * n_l + n_fq),
+        docs=text_ids.unique().numel() * (9 * n_d + 8),
+        words=words * 4 * (2 * n_l + 1))
+    writes = sum(t.numel() * t.element_size() for t in got[:-1])
+    return sum(reads.values()) + writes, dict(reads, outputs=writes)
+
+
+def gather_phase(torch, bench_spy, long_spy, _kernels):
+    """The gather kernel against the eager gather (its plain version) on
+    the first coverage block of every shape of a bench batch and of the
+    long-title batches: every field equal, dtype, shape and contiguity
+    too."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
+    runs = []
+    for label, origin, shape, args in kernel_blocks(bench_spy, long_spy,
+                                                    "gather"):
+        def kernel_fn(args=args):
+            return ck.gather_block(*args)
+
+        def plain_fn(args=args):
+            return ck.gather_block_plain(*args)
+
+        want = plain_fn()
+        n0 = _kernels.launch_counts["coverage_gather"]
+        k1, k2 = kernel_fn(), kernel_fn()
+        torch.cuda.synchronize()
+        check(_kernels.launch_counts["coverage_gather"] - n0 == 2,
+              "gather kernel phase: not one launch per call")
+        err = 0
+        for name, a, b, c in zip(ck.GatheredBlock._fields, k1, k2, want):
+            check(a.dtype == c.dtype and a.shape == c.shape
+                  and a.is_contiguous() == c.is_contiguous()
+                  and torch.equal(a, c),
+                  f"gather kernel ({label}): {name} differs from the plain "
+                  f"version")
+            check(torch.equal(a, b),
+                  f"gather kernel ({label}): two runs differ in {name}")
+            if a.numel():
+                err = max(err, int((a.long() - c.long()).abs().max()))
+        ms, plain_ms, times = in_turns(torch, plain_fn, kernel_fn, reps=20)
+        runs.append((label, origin, shape, args, kernel_fn, want, err, ms,
+                     plain_ms, times))
+    launches = []
+    dev = device_ms_each(torch, [r[4] for r in runs],
+                         "coverage_gather_kernel", reps=20,
+                         launches=launches)
+    out = {}
+    for (label, origin, shape, args, _, want, err, ms, plain_ms,
+         times), dev_ms, launch in zip(runs, dev, launches):
+        nbytes, by_input = gather_bound(args, want)
+        bound = bound_ms(nbytes, 0, INT32_PEAK)
+        n_c = args[2].numel()
+        log(f"[kernel] gather, {label} (Q, L, D {shape}, C {n_c}; "
+            f"{int(want.all_valid.sum())} valid tokens; launched as "
+            f"{geometry(launch)}): every field equal to the plain version, "
+            f"deterministic; kernel {dev_ms:.4f} ms on the device "
+            f"(profiler), {ms:.4f} ms a call back to back (events: "
+            f"{times['cuda']}), eager gather {plain_ms:.4f} ms "
+            f"({times['plain']}); bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({nbytes} B), {bound[0] / dev_ms:.1%} of the device time; "
+            f"bound bytes by input {by_input}")
+        check(int(want.all_valid.sum()) > 0,
+              f"gather kernel ({label}): no valid token")
+        out[label] = dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, bound_ms=bound[0],
+                          bound_by=bound[1], bound_bytes=nbytes,
+                          bound_bytes_by_input=by_input, origin=origin,
+                          shape=list(shape), candidates=n_c)
+    return out
+
+
 def cascade_bound(args):
     """(bytes, integer operations, needed pairs) the cascade of these
     inputs needs. Bytes: of each candidate the pair words of its real
@@ -793,11 +936,13 @@ def cascade_phase(torch, bench_spy, long_spy, _kernels):
         ms, plain_ms, times = in_turns(torch, plain_fn, kernel_fn, reps=20)
         runs.append((label, origin, shape, args, kernel_fn, k1, err, ms,
                      plain_ms, times))
+    launches = []
     dev = device_ms_each(torch, [r[4] for r in runs],
-                         "coverage_cascade_kernel", reps=20)
+                         "coverage_cascade_kernel", reps=20,
+                         launches=launches)
     out = {}
     for (label, origin, shape, args, _, k1, err, ms, plain_ms,
-         times), dev_ms in zip(runs, dev):
+         times), dev_ms, launch in zip(runs, dev, launches):
         nbytes, ops, n_pairs = cascade_bound(args)
         bound = bound_ms(nbytes, ops, INT32_PEAK)
         n_q, n_l, n_d = shape
@@ -808,7 +953,8 @@ def cascade_phase(torch, bench_spy, long_spy, _kernels):
             f"{int(whole.sum())} whole, {int(joined.sum())} joined, "
             f"{int((prefix & ~whole & ~joined).sum())} prefix, "
             f"{int(((tm > 0) & ~whole & ~joined & ~prefix).sum())} other "
-            f"terms): every output equal to the plain version "
+            f"terms; launched as {geometry(launch, n_c)}): every output "
+            f"equal to the plain version "
             f"(term_matched bit for bit), deterministic; kernel "
             f"{dev_ms:.4f} ms on the device (profiler), {ms:.4f} ms a call "
             f"back to back (events: {times['cuda']}), plain {plain_ms:.4f} "
@@ -1182,8 +1328,6 @@ def fusion_phase(torch, bench_spy, long_spy, _kernels):
             nbytes, ops, work, by_input = bound_of(args)
             bound = bound_ms(nbytes, ops, INT32_PEAK)
             n_c = k1.shape[-1]
-            blocks, threads = launch["grid"][0], launch["block"][0]
-            per_warp = n_c / (blocks * -(-threads // 32))
             if name == "coverage_lcs":
                 what = (f"{work} eligible candidates, "
                         f"{int((k1 > 0).sum())} with an LCS")
@@ -1191,11 +1335,8 @@ def fusion_phase(torch, bench_spy, long_spy, _kernels):
                 what = (f"{work} real (fusion token, doc token) pairs, "
                         f"{int((k1[0] >= 1).sum())} with precedence bits")
             log(f"[kernel] {name}, {label} (Q, L, D {shape}, C {n_c}; "
-                f"{what}; launched as {blocks} blocks of {threads} threads, "
-                f"{per_warp:.3f} candidates a warp, "
-                f"{launch['registers per thread']} registers a thread, "
-                f"{launch['shared memory']} B of shared memory a block, by "
-                f"the profiler's trace): bit-equal to the plain version, "
+                f"{what}; launched as {geometry(launch, n_c)}): bit-equal "
+                f"to the plain version, "
                 f"deterministic; "
                 f"kernel {dev_ms:.4f} ms on the device (profiler), "
                 f"{ms:.4f} ms a call back to back (events: {times['cuda']}),"
@@ -1282,15 +1423,12 @@ def main_phase(torch, it, eng, queries, _kernels):
     batches = [queries[i:i + BATCH] for i in (0, BATCH)]
     eng.serving_split(reset=True)
     pipe = eng._pipeline
-    blocks = []
-    block = ck._coverage_block
-    ck._coverage_block = lambda *a, **k: blocks.append(1) or block(*a, **k)
     fallback0 = pipe.coverage_host_fallback_count
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     walls, results = [], []
-    try:
+    with BlockCount(ck) as blocks:
         for b in batches:
             t0 = time.perf_counter()
             results.append(eng.search_batch([it.Query(q, 10) for q in b]))
@@ -1302,8 +1440,6 @@ def main_phase(torch, it, eng, queries, _kernels):
         torch.cuda.synchronize()
         wall_many = time.perf_counter() - t0
         counts = dict(_kernels.launch_counts)
-    finally:
-        ck._coverage_block = block
     split = eng.serving_split(reset=True)
     peak = torch.cuda.max_memory_allocated()
 
@@ -1321,15 +1457,13 @@ def main_phase(torch, it, eng, queries, _kernels):
     # threshold: this path runs the lane kernel only (phase 7 runs both)
     check(counts["stage1_scatter_lanes"] > 0,
           "main path: the lane kernel never launched")
-    log(f"[main] {len(blocks)} coverage blocks in the 4 batches, "
+    log(f"[main] {blocks.n} coverage blocks in the 4 batches, "
+        f"{counts['coverage_gather']} gather-kernel, "
         f"{counts['coverage_pairs']} pair-kernel, "
         f"{counts['coverage_cascade']} cascade-kernel, "
         f"{counts['coverage_lcs']} fake-LCS-kernel and "
         f"{counts['coverage_fusion']} fusion-kernel launches")
-    check(counts["coverage_cascade"] == counts["coverage_lcs"]
-          == counts["coverage_fusion"] == len(blocks) > 0
-          and counts["coverage_pairs"] == 2 * len(blocks),
-          f"main path: {counts} for {len(blocks)} coverage blocks")
+    check_per_block(counts, blocks.n, "main path")
     flat = [r for b in results for r in b]
     found = check_results(flat, N_DOCS, "search_batch")
     check(found >= len(flat) * 0.9,
@@ -1432,6 +1566,7 @@ def big_vocab_corpus(bench, n: int):
 def big_vocab_phase(torch, it, bench, _kernels):
     """The signature matcher at a vocabulary past the engine's threshold:
     the kernel against its plain version, then two served batches."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
     from infidex_tpu_torch.ops import fuzzy
 
     t0 = time.perf_counter()
@@ -1494,16 +1629,18 @@ def big_vocab_phase(torch, it, bench, _kernels):
 
     _kernels.reset_launch_counts()
     walls, results = [], []
-    for i in (0, BATCH):
-        t0 = time.perf_counter()
-        results += eng.search_batch([it.Query(q, 10)
-                                     for q in queries[i:i + BATCH]])
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    counts = dict(_kernels.launch_counts)
+    with BlockCount(ck) as blocks:
+        for i in (0, BATCH):
+            t0 = time.perf_counter()
+            results += eng.search_batch([it.Query(q, 10)
+                                         for q in queries[i:i + BATCH]])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = dict(_kernels.launch_counts)
     log(f"[vocab] two search_batch of {BATCH}: "
-        f"{[round(w * 1e3, 1) for w in walls]} ms wall; kernel launches "
-        f"{counts}")
+        f"{[round(w * 1e3, 1) for w in walls]} ms wall; {blocks.n} coverage "
+        f"blocks; kernel launches {counts}")
+    check_per_block(counts, blocks.n, "large vocabulary")
     check(counts["fuzzy_match"] > 0, "large vocabulary: the match kernel "
           "never launched")
     check(counts["stage1_scatter_lanes"] > 0, "large vocabulary: the lane "
@@ -1683,6 +1820,7 @@ def segments_phase(torch, it, eng, queries, resident, _kernels, root):
     import numpy as np
 
     from infidex_tpu_torch.index.mmap_serving import MmapStage1
+    from infidex_tpu_torch.ops import coverage_kernel as ck
 
     m = eng.vector_model
     texts = queries[:BATCH]
@@ -1720,12 +1858,14 @@ def segments_phase(torch, it, eng, queries, resident, _kernels, root):
         _kernels.reset_launch_counts()
         n0 = len(streamed)
         t0 = time.perf_counter()
-        res = eng.search_batch([it.Query(q, 10) for q in texts])
-        torch.cuda.synchronize()
+        with BlockCount(ck) as blocks:
+            res = eng.search_batch([it.Query(q, 10) for q in texts])
+            torch.cuda.synchronize()
+            counts = dict(_kernels.launch_counts)
         wall = time.perf_counter() - t0
-        counts = dict(_kernels.launch_counts)
         check(len(streamed) > n0 and counts["stage1_scatter_lanes"] > 0,
               "segments: the batch did not stream through the lane kernel")
+        check_per_block(counts, blocks.n, "segments")
         found = check_results(res, N_DOCS, "segment batch")
         same = sum([r.document_id for r in a.records]
                    == [r.document_id for r in b.records]
@@ -1824,6 +1964,8 @@ def serve_pool_batches(torch, it, eng, queries, _kernels):
     reset just before and read just after. Returns the jobs the card
     scored ((pool, term ids, idfs) each), their top-k, the results, the
     walls and the counts."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
     m = eng.vector_model
     dev_index = m.device
     gate, captured = [], []
@@ -1844,15 +1986,17 @@ def serve_pool_batches(torch, it, eng, queries, _kernels):
     try:
         torch.cuda.synchronize()
         _kernels.reset_launch_counts()
-        for i in (0, BATCH):
-            t0 = time.perf_counter()
-            results.append(eng.search_batch([it.Query(q, 10)
-                                             for q in queries[i:i + BATCH]]))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        counts = dict(_kernels.launch_counts)
+        with BlockCount(ck) as blocks:
+            for i in (0, BATCH):
+                t0 = time.perf_counter()
+                results.append(eng.search_batch(
+                    [it.Query(q, 10) for q in queries[i:i + BATCH]]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = dict(_kernels.launch_counts)
     finally:
         del m._tier_gate, dev_index.pool_score_dispatch, m.POOL_DEVICE
+    check_per_block(counts, blocks.n, "pool scoring")
     jobs = [j for js, _ in captured for j in js]
     log(f"[pool] two batches with POOL_DEVICE=\"1\": {sum(gate)} tier "
         f"jobs, {len(jobs)} pools scored on the card in {len(captured)} "
@@ -1963,6 +2107,7 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
     """The 1M-doc index served by SHARDS shards on the one card, then by a
     one-shard mesh: identical results, one lane launch per shard and
     group."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
     from infidex_tpu_torch.parallel.sharding import make_mesh
 
     m = eng.vector_model
@@ -1983,14 +2128,17 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launch_counts()
         walls, batches = [], []
-        for i in (0, BATCH):
-            t0 = time.perf_counter()
-            batches += eng.search_batch([it.Query(q, 10)
-                                         for q in queries[i:i + BATCH]])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        with BlockCount(ck) as blocks:
+            for i in (0, BATCH):
+                t0 = time.perf_counter()
+                batches += eng.search_batch([it.Query(q, 10)
+                                             for q in queries[i:i + BATCH]])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = dict(_kernels.launch_counts)
         n_groups = len(groups)
-        counts = dict(_kernels.launch_counts)
+        check_per_block(counts, blocks.n, f"sharded ({n_sh} shards)",
+                        lcs=False)
         swalls, single = [], []
         for q in singles:
             t0 = time.perf_counter()
@@ -2066,13 +2214,22 @@ def main(argv=None) -> int:
                     help="also measure recall@10 against the depth oracle")
     args = ap.parse_args(argv)
 
+    # the script drives the repository it lies in: alone, it stops here
+    root = os.path.dirname(os.path.abspath(__file__))
+    missing = [name for name in ("bench.py", "infidex_tpu_torch")
+               if not os.path.exists(os.path.join(root, name))]
+    if missing:
+        print(f"chip_smoke: {' and '.join(missing)} not found beside "
+              f"{os.path.abspath(__file__)}; run it from the root of the "
+              f"repository", file=sys.stderr)
+        return 2
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs one "
               "CUDA card", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import bench
     import infidex_tpu_torch as it
@@ -2112,6 +2269,8 @@ def main(argv=None) -> int:
     bench_spy = first_block_args(torch, it, eng, queries)
     long_spy, long_counts = timed("2 long titles", long_titles_phase, torch,
                                   it, runtime, bench, _kernels)
+    gk2 = timed("2 gather kernel", gather_phase, torch, bench_spy, long_spy,
+                _kernels)
     pk2 = timed("2 pair kernel", pair_phase, torch, bench_spy, long_spy,
                 _kernels)
     ck2 = timed("2 cascade kernel", cascade_phase, torch, bench_spy, long_spy,
@@ -2196,8 +2355,23 @@ def main(argv=None) -> int:
         "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
         "bound_by": pk["bound_by"], "library_ms": None}, {
         # the numbers of the bench batch's first block (the small class,
-        # the one the main path's blocks are), with distances; every block
-        # of the kernel phase under "by_block"
+        # the one the main path's blocks are); every block of the kernel
+        # phase under "by_block"
+        "name": "coverage_gather", "route": "cuda",
+        "source": "infidex_tpu_torch/csrc/coverage_gather.cu",
+        "replaces": "infidex_tpu/ops/coverage_kernel.py:581",
+        "launches": counts["coverage_gather"],
+        "launches_per_batch": counts["coverage_gather"] / 4,
+        "launches_by_path": paths("coverage_gather"),
+        "launches_per_batch_by_path": per_batch("coverage_gather"),
+        "max_abs_err": gk2[main_cascade]["max_abs_err"],
+        "ms": gk2[main_cascade]["ms"],
+        "device_ms": gk2[main_cascade]["device_ms"],
+        "plain_ms": gk2[main_cascade]["plain_ms"],
+        "bound_ms": gk2[main_cascade]["bound_ms"],
+        "bound_by": gk2[main_cascade]["bound_by"], "library_ms": None,
+        "by_block": gk2}, {
+        # as above, with distances
         "name": "coverage_pairs", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/coverage_pairs.cu",
         "replaces": "infidex_tpu/ops/coverage_kernel.py:466",

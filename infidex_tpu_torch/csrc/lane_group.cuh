@@ -1,7 +1,7 @@
 // A group of G lanes of one warp that work on one item together, and the
 // few collectives the coverage kernels need over it: a ballot, the first
-// index that passes a test, any / all / count, the largest value, and a
-// loop that shares indices out over the lanes.
+// index that passes a test, any / all / count, the largest value (of
+// floats or of ints), and a loop that shares indices out over the lanes.
 //
 // On the card (device code) a collective is a warp intrinsic over the
 // group's lanes. On the host (g++, the CPU tests) a group is one thread:
@@ -9,7 +9,7 @@
 // combines the results the same way, so the host build runs the lane code
 // as the card does, phase by phase.
 //
-// A per-lane function takes the lane (ballot, max_of) or an index i < n
+// A per-lane function takes the lane (ballot, max_of, max_int) or an index i < n
 // that the lanes share out, lane l taking i = l, l + G, l + 2G, ...
 // (first, any, all, count, each). Every lane of a group calls the same
 // collectives in the same order: their control flow depends only on values
@@ -100,6 +100,21 @@ GRP_HD float max_of(const Group<G>& g, const F& val) {
     for (int l = 0; l < G; ++l) v[l] = next[l];
   }
   return v[0];
+#endif
+}
+
+// The largest val(l) over the lanes, of ints: exact in any order.
+template <int G, class F>
+GRP_HD int max_int(const Group<G>& g, const F& val) {
+#if defined(__CUDA_ARCH__)
+  return __reduce_max_sync(g.mask, val(g.lane));
+#else
+  int v = val(0);
+  for (int l = 1; l < G; ++l) {
+    const int w = val(l);
+    v = w > v ? w : v;
+  }
+  return v;
 #endif
 }
 

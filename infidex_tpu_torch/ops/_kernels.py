@@ -38,8 +38,9 @@ FUZZY_TILE = 512
 
 #: launches per kernel since the last reset (one per kernel launch)
 launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
-                 "pool_score": 0, "coverage_pairs": 0, "coverage_cascade": 0,
-                 "coverage_lcs": 0, "coverage_fusion": 0}
+                 "pool_score": 0, "coverage_gather": 0, "coverage_pairs": 0,
+                 "coverage_cascade": 0, "coverage_lcs": 0,
+                 "coverage_fusion": 0}
 
 #: char widths ``csrc/coverage_pairs.cu`` is compiled for (the coverage
 #: program's L_CAP_SMALL and L_MAX)
@@ -106,6 +107,9 @@ def bind(lib):
             ("pool_score", [p, p, p, p, p, i, i, i, p, ctypes.c_longlong, p,
                             p, p, p, p]),
             ("coverage_pairs", [p, p, p, p, p, p, p, i, i, i, i, i, p, p]),
+            ("coverage_gather", [p] * 3 + [i] * 2 + [p] * 5 + [i] * 2
+             + [p] * 5 + [i] * 2 + [p] * 3 + [i] + [p] * 2 + [i] * 3
+             + [p] * 18),
             ("coverage_cascade", [p] * 10 + [i] * 4 + [p] * 9),
             ("coverage_lcs", [p] * 10 + [i] * 3 + [p, p]),
             ("coverage_fusion", [p] * 29 + [i] * 5 + [p, i, p, p])):
@@ -321,6 +325,120 @@ def _check_nd(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
                          f"{tuple(shape)}, got {tuple(t.shape)}")
 
 
+def gather_dims(tables, queries, text_ids, qsel, L: int, D: int) -> dict:
+    """The widths of one coverage block's gather (see
+    ``coverage_gather``), after checking what the kernel takes: every
+    tensor on one device, contiguous, of the dtype and shape below. Raises
+    otherwise."""
+    (word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
+     doc_tok_count, doc_adj_ws, doc_text_len) = tables
+    (q_chars, q_chars_rev, q_lens, _, _, q_count, q_sorted, fq_chars,
+     fq_chars_rev, fq_lens, _, _, _) = queries
+    dev = doc_tokens.device
+    n_w, w_cols = word_chars.shape
+    n_docs, d_cols = doc_tokens.shape
+    n_b, n_q = q_lens.shape
+    n_fq = fq_lens.shape[1]
+    n_c = text_ids.shape[0]
+    i32, i64, b8 = torch.int32, torch.int64, torch.bool
+    for name, t, dt, shape in (
+            ("word_chars", word_chars, i32, (n_w, w_cols)),
+            ("word_chars_rev", word_chars_rev, i32, (n_w, w_cols)),
+            ("word_lens", word_lens, i32, (n_w,)),
+            ("doc_tokens", doc_tokens, i32, (n_docs, d_cols)),
+            ("doc_tok_offsets", doc_tok_offsets, i32, (n_docs, d_cols)),
+            ("doc_tok_count", doc_tok_count, i32, (n_docs,)),
+            ("doc_adj_ws", doc_adj_ws, b8, (n_docs, d_cols)),
+            ("doc_text_len", doc_text_len, i32, (n_docs,)),
+            ("q_chars", q_chars, i32, (n_b, n_q, L)),
+            ("q_chars_rev", q_chars_rev, i32, (n_b, n_q, L)),
+            ("q_lens", q_lens, i32, (n_b, n_q)),
+            ("q_count", q_count, i32, (n_b,)),
+            ("q_sorted", q_sorted, i32, (n_b, n_q)),
+            ("fq_chars", fq_chars, i32, (n_b, n_fq, L)),
+            ("fq_chars_rev", fq_chars_rev, i32, (n_b, n_fq, L)),
+            ("fq_lens", fq_lens, i32, (n_b, n_fq)),
+            ("text_ids", text_ids, i64, (n_c,)),
+            ("qsel", qsel, i64, (n_c,))):
+        _check_nd(name, t, dt, shape, dev)
+    if L not in PAIR_CHAR_WIDTHS or L > w_cols or not 1 <= D <= d_cols:
+        raise ValueError(f"coverage_gather: L {L}, D {D} against words of "
+                         f"{w_cols} chars and docs of {d_cols} tokens; the "
+                         f"kernel is built for L in {PAIR_CHAR_WIDTHS}")
+    return dict(n_w=n_w, w_cols=w_cols, n_docs=n_docs, d_cols=d_cols,
+                n_b=n_b, n_q=n_q, n_fq=n_fq, n_c=n_c)
+
+
+def gather_call(lib, tables, queries, text_ids, qsel, L: int, D: int, n,
+                outs, stream) -> int:
+    """``lib``'s ``coverage_gather`` on arguments that ``gather_dims``
+    checked (``n``, its widths) and the seventeen outputs ``outs``
+    (``GatheredBlock``'s fields but ``first_char``); returns its code."""
+    (word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
+     doc_tok_count, doc_adj_ws, doc_text_len) = tables
+    (q_chars, q_chars_rev, q_lens, _, _, q_count, q_sorted, fq_chars,
+     fq_chars_rev, fq_lens, _, _, _) = queries
+    return lib.coverage_gather(
+        word_chars.data_ptr(), word_chars_rev.data_ptr(),
+        word_lens.data_ptr(), n["n_w"], n["w_cols"], doc_tokens.data_ptr(),
+        doc_tok_offsets.data_ptr(), doc_tok_count.data_ptr(),
+        doc_adj_ws.data_ptr(), doc_text_len.data_ptr(), n["n_docs"],
+        n["d_cols"], q_chars.data_ptr(), q_chars_rev.data_ptr(),
+        q_lens.data_ptr(), q_count.data_ptr(), q_sorted.data_ptr(), n["n_b"],
+        n["n_q"], fq_chars.data_ptr(), fq_chars_rev.data_ptr(),
+        fq_lens.data_ptr(), n["n_fq"], text_ids.data_ptr(), qsel.data_ptr(),
+        L, D, n["n_c"], *(o.data_ptr() for o in outs), stream)
+
+
+def coverage_gather(tables, queries, text_ids, qsel, L: int, D: int):
+    """``csrc/coverage_gather.cu``: one coverage block's gather (see
+    ``ops/coverage_kernel.py gather_block``). ``tables`` = (``word_chars``,
+    ``word_chars_rev`` int32 [W, >= L], ``word_lens`` int32 [W],
+    ``doc_tokens``, ``doc_tok_offsets`` int32 [N, >= D], ``doc_tok_count``
+    int32 [N], ``doc_adj_ws`` bool [N, >= D], ``doc_text_len`` int32 [N]);
+    ``queries`` the thirteen per-query tables of ``_coverage_block``, of
+    which it reads q_chars, q_chars_rev int32 [B, Q, L], q_lens, q_sorted
+    int32 [B, Q], q_count int32 [B], fq_chars, fq_chars_rev int32
+    [B, FQ, L] and fq_lens int32 [B, FQ]; ``text_ids`` and ``qsel`` int64
+    [C]; all contiguous (``gather_dims``). The kernel reads rows
+    unchecked: text ids must lie in [0, N), qsel in [0, B) and the doc
+    token codes in [-1, W) (see ``csrc/coverage_gather.cu``'s C entry for
+    where each holds). Returns the eighteen fields of ``GatheredBlock`` in
+    its order, with ``first_char`` a view of ``chars_t[0]``. One launch."""
+    dev = text_ids.device
+    if dev.type != "cuda":
+        raise ValueError("coverage_gather: CUDA tensors required")
+    n = gather_dims(tables, queries, text_ids, qsel, L, D)
+    n_q, n_fq, n_c = n["n_q"], n["n_fq"], n["n_c"]
+    i32, b8 = torch.int32, torch.bool
+
+    def empty(*shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    qc3, qr3 = empty(n_q, L, n_c), empty(n_q, L, n_c)
+    qlens2, qcount, qsorted2 = empty(n_q, n_c), empty(n_c), empty(n_q, n_c)
+    fqc3, fqr3, fqlens2 = (empty(n_fq, L, n_c), empty(n_fq, L, n_c),
+                           empty(n_fq, n_c))
+    codes, tok_count, offsets = empty(D, n_c), empty(n_c), empty(D, n_c)
+    adj_ws, text_len = empty(D, n_c, dtype=b8), empty(n_c)
+    chars_t, chars_rev_t = empty(L, D, n_c), empty(L, D, n_c)
+    lens, all_valid = empty(D, n_c), empty(D, n_c, dtype=b8)
+    outs = (qc3, qr3, qlens2, qcount, qsorted2, fqc3, fqr3, fqlens2, codes,
+            tok_count, offsets, adj_ws, text_len, chars_t, chars_rev_t, lens,
+            all_valid)
+    if n_c > 0:
+        build()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = gather_call(_lib, tables, queries, text_ids, qsel, L, D, n,
+                             outs, stream)
+        if rc != 0:
+            raise RuntimeError("coverage_gather launch failed: "
+                               + _lib.stage1_error_string(rc).decode())
+        launch_counts["coverage_gather"] += 1
+    return (*outs, chars_t[0])
+
+
 def coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens, valid,
                    distances: bool):
     """``csrc/coverage_pairs.cu``: the pair words of one coverage block
@@ -367,7 +485,7 @@ def coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens, valid,
 
 
 def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
-                     qlens2, qsorted2, qc3, qcount, config):
+                     qlens2, qsorted2, qc3, qcount, config, *, lib=None):
     """``csrc/coverage_cascade.cu``: the Stage-2 matcher cascade of one
     coverage block (see ``ops/coverage_kernel.py coverage_cascade``).
     ``pairs`` int32 [Q, D, C] pair words with distances; ``lens``,
@@ -377,7 +495,8 @@ def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
     most ``CASCADE_Q_MAX``. ``config`` is a ``CoverageConfig``. Returns
     ``(term_matched f32 [Q, C], term_has_whole, term_has_joined,
     term_has_prefix bool [Q, C], term_first_pos int32 [Q, C], word_hits,
-    cov_count int32 [C])``. One launch."""
+    cov_count int32 [C])``. One launch, of ``lib``'s kernel when given (as
+    in ``coverage_lcs``), else the port's."""
     dev = pairs.device
     if dev.type != "cuda":
         raise ValueError("coverage_cascade: CUDA tensors required")
@@ -418,7 +537,7 @@ def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
         int(config.cover_fuzzy_words))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.coverage_cascade(
+        rc = (lib or _lib).coverage_cascade(
             pairs.data_ptr(), lens.data_ptr(), offsets.data_ptr(),
             codes.data_ptr(), first_char.data_ptr(), tok_count.data_ptr(),
             qlens2.data_ptr(), qsorted2.data_ptr(), qc3.data_ptr(),

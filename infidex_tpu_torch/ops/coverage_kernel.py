@@ -892,6 +892,18 @@ def _as_dev(x, dev, dtype=None) -> torch.Tensor:
     return _upload(a, dev)
 
 
+def _check_ids(name: str, ids, n: int) -> None:
+    """Raise IndexError unless every row id of a host array ``ids`` is in
+    [0, n): the gather kernel reads the tables at these rows unchecked. A
+    device tensor is taken as it is (reading it back would wait for the
+    card); the engine passes host arrays."""
+    if isinstance(ids, torch.Tensor):
+        return
+    a = np.asarray(ids)
+    if a.size and (int(a.min()) < 0 or int(a.max()) >= n):
+        raise IndexError(f"coverage_fusion_batch: {name} outside [0, {n})")
+
+
 def coverage_fusion_batch(
     word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
     doc_tok_count, doc_adj_ws, doc_text_len,
@@ -933,6 +945,8 @@ def coverage_fusion_batch(
         lcs = (text_chars, lcs_ok_dev, _as_dev(q_text, dev, _I32),
                _as_dev(q_text_len, dev), _as_dev(q_lcs_tol, dev),
                _as_dev(q_lcs_ok, dev))
+    _check_ids("text_ids", text_ids, doc_tokens.shape[0])
+    _check_ids("qsel", qsel, queries[2].shape[0])
     rows = tuple(_as_dev(x, dev) for x in (text_ids, qsel, lcs_vals,
                                            base_scores))
     n = rows[0].shape[0]
@@ -944,20 +958,52 @@ def coverage_fusion_batch(
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
-                    base_scores, *, config: CoverageConfig) -> torch.Tensor:
+class GatheredBlock(NamedTuple):
+    """One coverage block's inputs gathered per candidate, candidate-minor
+    (C last), what the pair, cascade, fake-LCS and fusion kernels read."""
+
+    qc3: torch.Tensor          # int32 [Q, L, C] query chars
+    qr3: torch.Tensor          # int32 [Q, L, C] reversed
+    qlens2: torch.Tensor       # int32 [Q, C]
+    qcount: torch.Tensor       # int32 [C]
+    qsorted2: torch.Tensor     # int32 [Q, C]
+    fqc3: torch.Tensor         # int32 [FQ, L, C] fusion query chars
+    fqr3: torch.Tensor         # int32 [FQ, L, C]
+    fqlens2: torch.Tensor      # int32 [FQ, C]
+    codes: torch.Tensor        # int32 [D, C] word codes, -1 padded
+    tok_count: torch.Tensor    # int32 [C]
+    offsets: torch.Tensor      # int32 [D, C]
+    adj_ws: torch.Tensor       # bool [D, C]
+    text_len: torch.Tensor     # int32 [C]
+    chars_t: torch.Tensor      # int32 [L, D, C] doc word chars, 0 if invalid
+    chars_rev_t: torch.Tensor  # int32 [L, D, C]
+    lens: torch.Tensor         # int32 [D, C], 0 where invalid
+    all_valid: torch.Tensor    # bool [D, C]: a word, and below tok_count
+    first_char: torch.Tensor   # int32 [D, C], chars_t[0]
+
+
+def gather_block(tables, queries, text_ids, qsel, L: int, D: int):
+    """The coverage block's gather: the rows of the C candidates' queries
+    (``qsel``, int64 [C]) and docs (``text_ids``, int64 [C]) from the
+    per-query tables ``queries`` (as ``_coverage_block`` takes them) and
+    the doc token ``tables``, each doc's first D tokens, the first L of
+    each word's chars. Returns a ``GatheredBlock``. CUDA tensors launch the
+    kernel (csrc/coverage_gather.cu); CPU tensors take the plain
+    version."""
+    if text_ids.device.type == "cpu":
+        return gather_block_plain(tables, queries, text_ids, qsel, L, D)
+    return GatheredBlock(*_kernels.coverage_gather(tables, queries, text_ids,
+                                                   qsel, L, D))
+
+
+def gather_block_plain(tables, queries, text_ids, qsel, L: int, D: int):
+    """Plain PyTorch version of ``gather_block`` (same arguments, same
+    result, bool for bool), on any device."""
     (word_chars, word_chars_rev, word_lens, doc_tokens, doc_tok_offsets,
      doc_tok_count, doc_adj_ws, doc_text_len) = tables
-    (q_chars, q_chars_rev, q_lens, q_idf, q_word_idf, q_count, q_sorted,
-     fq_chars, fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
-     query_len) = queries
+    (q_chars, q_chars_rev, q_lens, _, _, q_count, q_sorted, fq_chars,
+     fq_chars_rev, fq_lens, _, _, _) = queries
     dev = doc_tokens.device
-    text_ids = text_ids.long()
-    qsel = qsel.long()
-    lcs_vals = lcs_vals.to(_F32)
-    base_scores = base_scores.to(_F32)
-    L = q_chars.shape[2]
-    D = config.d_cap if config.d_cap else doc_tokens.shape[1]
 
     # Per-candidate query views, C-minor, of what the pair and cascade
     # kernels read (the fusion kernel reads the [B, ...] tables via qsel).
@@ -987,21 +1033,43 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
     chars_rev_t = torch.where(all_valid[None], chars_rev_t, 0).contiguous()
     lens = torch.where(all_valid, lens, 0)
     first_char = chars_t[0]                          # [D,C]
+    return GatheredBlock(qc3, qr3, qlens2, qcount, qsorted2, fqc3, fqr3,
+                         fqlens2, codes, tok_count, offsets, adj_ws,
+                         text_len, chars_t, chars_rev_t, lens, all_valid,
+                         first_char)
+
+
+def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
+                    base_scores, *, config: CoverageConfig) -> torch.Tensor:
+    (q_chars, _, q_lens, q_idf, q_word_idf, q_count, _, fq_chars,
+     fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha, query_len) = queries
+    doc_tokens = tables[3]
+    text_ids = text_ids.long()
+    qsel = qsel.long()
+    lcs_vals = lcs_vals.to(_F32)
+    base_scores = base_scores.to(_F32)
+    L = q_chars.shape[2]
+    D = config.d_cap if config.d_cap else doc_tokens.shape[1]
+
+    g = gather_block(tables, queries, text_ids, qsel, L, D)
 
     # One pair word per (query token, doc token): the six relations, the
     # common-prefix length and the five edit distances; then the matcher
     # cascade over them; then the relations of the fusion (unfiltered)
     # query tokens; then the fake-LCS and the scorer + fusion program. One
     # kernel launch each on the card.
-    pairs = coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens,
-                           all_valid, distances=True)
-    state = coverage_cascade(pairs, lens, offsets, codes, first_char,
-                             tok_count, qlens2, qsorted2, qc3, qcount, config)
-    fq_pairs = coverage_pairs(fqc3, fqr3, fqlens2, chars_t, chars_rev_t,
-                              lens, all_valid, distances=False)
+    pairs = coverage_pairs(g.qc3, g.qr3, g.qlens2, g.chars_t, g.chars_rev_t,
+                           g.lens, g.all_valid, distances=True)
+    state = coverage_cascade(pairs, g.lens, g.offsets, g.codes, g.first_char,
+                             g.tok_count, g.qlens2, g.qsorted2, g.qc3,
+                             g.qcount, config)
+    fq_pairs = coverage_pairs(g.fqc3, g.fqr3, g.fqlens2, g.chars_t,
+                              g.chars_rev_t, g.lens, g.all_valid,
+                              distances=False)
     if lcs is not None:
-        lcs_vals = coverage_lcs(*lcs, text_ids, qsel, text_len, lcs_vals)
-    doc = (chars_t, chars_rev_t, lens, adj_ws, all_valid, tok_count, text_len)
+        lcs_vals = coverage_lcs(*lcs, text_ids, qsel, g.text_len, lcs_vals)
+    doc = (g.chars_t, g.chars_rev_t, g.lens, g.adj_ws, g.all_valid,
+           g.tok_count, g.text_len)
     fusion_queries = (q_lens, q_idf, q_word_idf, q_count, fq_chars,
                       fq_chars_rev, fq_lens, fq_count, fq_last_is_alpha,
                       query_len)

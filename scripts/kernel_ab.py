@@ -3,6 +3,7 @@ one run.
 
     python3 scripts/kernel_ab.py [--old-csrc DIR] [--old-pool-csrc DIR]
                                  [--old-edit-csrc DIR] [--old-cov-csrc DIR]
+                                 [--gather]
                                  [--out DIR] [--reps N]
 
 ``--old-csrc`` holds the earlier lane and match kernels
@@ -17,12 +18,15 @@ kernel (``edit_distances.cu`` and ``edit_distances_cell.cuh`` of commit
 ce4e9c9: one thread per (query token, doc token, candidate), five int32
 tensors out), e.g. ``git archive ce4e9c9 infidex_tpu_torch/csrc |
 tar -x --strip-components=2 -C build/old_edit``; ``--old-cov-csrc`` the
-earlier fake-LCS and fusion kernels (``coverage_lcs.cu``,
-``coverage_lcs_cell.cuh``, ``coverage_fusion.cu`` and
-``coverage_fusion_cell.cuh`` of commit 705596b: one thread per candidate;
-same C interfaces as today's), e.g. ``git archive 705596b
-infidex_tpu_torch/csrc | tar -x --strip-components=2 -C build/old_cov``.
-Only the pairs whose directory is given run. The
+earlier fake-LCS, fusion and cascade kernels (``coverage_lcs.cu``,
+``coverage_fusion.cu``, ``coverage_cascade.cu`` and their cell headers;
+same C interfaces as today's): of commit 705596b, one thread per
+candidate in all three, e.g. ``git archive 705596b infidex_tpu_torch/csrc
+| tar -x --strip-components=2 -C build/old_cov``, or of commit 22ca07e,
+where only the cascade was still one thread per candidate.
+``--gather`` times the gather kernel
+(``csrc/coverage_gather.cu``) beside the eager gather it replaces. Only
+the pairs whose directory or flag is given run. The
 script builds the old sources with the same ``nvcc`` flags as the port's
 library, then, on one card:
 
@@ -43,11 +47,18 @@ library, then, on one card:
   beside it. Besides the times of calls in turns, each kernel's device
   time alone (torch.profiler).
 
-* cov: the same blocks as edit, for the fake-LCS and the fusion kernel
-  (``csrc/coverage_lcs.cu``, ``csrc/coverage_fusion.cu``): the earlier
-  design beside today's, each kernel's device time alone (torch.profiler)
-  in turns as well, and the registers, spills and shared memory
-  ``nvcc -Xptxas=-v`` reports for both designs' kernels.
+* cov: the same blocks as edit, for the cascade, the fake-LCS and the
+  fusion kernel (``csrc/coverage_cascade.cu``, ``csrc/coverage_lcs.cu``,
+  ``csrc/coverage_fusion.cu``): the earlier design beside today's, both
+  through the port's wrapper (``lib=``), each kernel's device time alone
+  (torch.profiler) and its traced launch geometry, in turns as well, and
+  the registers, spills and shared memory ``nvcc -Xptxas=-v`` reports for
+  both designs' kernels (today's gather kernel's too).
+
+* gather: the same blocks, the gather kernel beside the eager gather
+  (``gather_block_plain`` on the card): equal fields, events in turns,
+  and the device time of the eager gather's kernels summed beside the
+  kernel's.
 
 The pool part also reports how long the narrowed ranges of the run's
 tiles are.
@@ -92,19 +103,22 @@ def _nvcc_old(src_dir: str, names, out_dir: str, so_name: str,
     return ctypes.CDLL(so)
 
 
-COV_SOURCES = ("coverage_lcs.cu", "coverage_fusion.cu")
+COV_SOURCES = ("coverage_lcs.cu", "coverage_fusion.cu",
+               "coverage_cascade.cu")
+COV_KERNELS = ("coverage_lcs_kernel", "coverage_fusion_kernel",
+               "coverage_cascade_kernel", "coverage_gather_kernel")
 
 
 def kernel_resources(report: str) -> dict:
-    """Registers, spill bytes and static shared memory of each fake-LCS and
-    fusion kernel in an ``nvcc -Xptxas=-v`` report, by kernel (the fusion
-    kernel's (L, D) template arguments in the name)."""
+    """Registers, spill bytes and static shared memory of each coverage
+    kernel in an ``nvcc -Xptxas=-v`` report, by kernel (its template
+    arguments, (L, D) or D or L, in the name)."""
     out, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = None
-            for kernel in ("coverage_lcs_kernel", "coverage_fusion_kernel"):
+            for kernel in COV_KERNELS:
                 if kernel in m.group(1):
                     args = re.findall(r"Li(\d+)E", m.group(1))
                     name = kernel + (f"<{', '.join(args)}>" if args else "")
@@ -126,61 +140,158 @@ def kernel_resources(report: str) -> dict:
 
 
 def build_old_cov(src_dir: str, out_dir: str):
-    """The earlier fake-LCS and fusion kernels (today's C interfaces), and
-    the ptxas resources of both designs' kernels."""
+    """The earlier fake-LCS, fusion and cascade kernels (today's C
+    interfaces), and the ptxas resources of the old and new designs'
+    kernels."""
     from infidex_tpu_torch.ops import _kernels
 
     reports = []
     lib = _kernels.bind(_nvcc_old(src_dir, COV_SOURCES, out_dir,
                                   "libinfidex_cov_old.so", reports))
-    _nvcc_old(_kernels._CSRC, COV_SOURCES, out_dir, "libinfidex_cov_new.so",
-              reports)
+    _nvcc_old(_kernels._CSRC, COV_SOURCES + ("coverage_gather.cu",), out_dir,
+              "libinfidex_cov_new.so", reports)
     return lib, {"old": kernel_resources(reports[0]),
                  "new": kernel_resources(reports[1])}
 
 
-def cov_ab(torch, cs, it, bench, runtime, eng, queries, lib,
-           reps: int) -> dict:
-    """The earlier fake-LCS and fusion kernels beside today's on the first
-    coverage block of every shape of a bench batch and of chip_smoke.py's
-    long-title batches: equal bits, then events and device times (the
-    kernel alone, torch.profiler), each in turns old, new, new, old."""
+def _bits(torch, out):
+    """A kernel's result as a list of tensors, f32 by its bits."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in outs]
+
+
+def changed(src_dir: str, name: str) -> bool:
+    """Whether kernel ``name``'s source or cell header differs between
+    ``src_dir`` and the port's csrc/."""
     from infidex_tpu_torch.ops import _kernels
 
-    bench_spy = cs.first_block_args(torch, it, eng, queries)
-    long_spy, _ = cs.long_titles_phase(torch, it, runtime, bench, _kernels)
+    for f in (f"{name}.cu", f"{name}_cell.cuh"):
+        with open(os.path.join(src_dir, f), "rb") as a, \
+                open(os.path.join(_kernels._CSRC, f), "rb") as b:
+            if a.read() != b.read():
+                return True
+    return False
+
+
+def cov_ab(torch, cs, spies, lib, reps: int, src_dir: str) -> dict:
+    """The earlier fake-LCS, fusion and cascade kernels beside today's on
+    the first coverage block of every shape of a bench batch and of
+    chip_smoke.py's long-title batches: equal bits, then events and device
+    times (the kernel alone, torch.profiler), each in turns old, new, new,
+    old. A kernel whose sources ``src_dir`` holds unchanged is not timed.
+    ``spies``: ``block_spies``."""
+    from infidex_tpu_torch.ops import _kernels
+
+    bench_spy, long_spy = spies
     out = {}
     for name, which, kernel in (
+            ("coverage_cascade", "cascade", "coverage_cascade_kernel"),
             ("coverage_lcs", "lcs", "coverage_lcs_kernel"),
             ("coverage_fusion", "fusion", "coverage_fusion_kernel")):
+        if not changed(src_dir, name):
+            print(f"[cov] {name}: the same sources in both directories, "
+                  f"not timed", flush=True)
+            continue
         by_block = {}
         wrapper = getattr(_kernels, name)
         for label, _, shape, a in cs.kernel_blocks(bench_spy, long_spy,
                                                    which):
-            # both through the port's wrapper: the same checks either side
+            # all through the port's wrapper: the same checks on each side
             fns = {"old": lambda a=a: wrapper(*a, lib=lib),
                    "new": lambda a=a: wrapper(*a)}
-            old, new = fns["old"](), fns["new"]()
+            results = {k: _bits(torch, fn()) for k, fn in fns.items()}
             torch.cuda.synchronize()
-            same = torch.equal(old.view(torch.int32), new.view(torch.int32))
+            same = {k: all(torch.equal(x, y) for x, y in
+                           zip(r, results["new"]))
+                    for k, r in results.items()}
             times = in_turns(torch, cs, fns, reps)
+            order = ["old", "new", "new", "old"]
             launches = []
-            dev = cs.device_ms_each(torch, [fns[k] for k in (
-                "old", "new", "new", "old")], kernel, reps, launches)
+            dev = cs.device_ms_each(torch, [fns[k] for k in order], kernel,
+                                    reps, launches)
+            device_ms, launch = {}, {}
+            for k, ms, ln in zip(order, dev, launches):
+                device_ms.setdefault(k, []).append(ms)
+                launch[k] = ln
+            n_c = int(results["new"][-1].shape[-1])
             by_block[label] = dict(
-                shape=list(shape), candidates=int(new.shape[-1]),
-                bit_equal=bool(same), ms=times,
-                device_ms={"old": [dev[0], dev[3]], "new": dev[1:3]},
-                launch={"old": launches[0], "new": launches[1]})
-            print(f"[cov] {name}, {label} (C {new.shape[-1]}): bit-equal "
-                  f"{same}; device ms old {dev[0]:.4f}, {dev[3]:.4f}, new "
-                  f"{dev[1]:.4f}, {dev[2]:.4f}; events ms old "
-                  f"{times['old'][0]:.4f}, {times['old'][1]:.4f}, new "
-                  f"{times['new'][0]:.4f}, {times['new'][1]:.4f}; launch "
-                  f"old {launches[0]}, new {launches[1]}", flush=True)
+                shape=list(shape), candidates=n_c,
+                bit_equal=all(same.values()), ms=times,
+                device_ms=device_ms, launch=launch)
+            print(f"[cov] {name}, {label} (C {n_c}): bit-equal {same}; "
+                  f"device ms {device_ms}; events ms {times}; launch "
+                  f"{launch}", flush=True)
         out[name] = by_block
     return dict(bit_equal=all(b["bit_equal"] for v in out.values()
                               for b in v.values()), **out)
+
+
+def device_total_ms(torch, fn, reps: int):
+    """(mean device milliseconds, mean kernels) of all the kernels one call
+    of ``fn`` launches (torch.profiler), over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3, \
+        len(events) / reps
+
+
+def block_spies(torch, cs, it, bench, runtime, eng, queries):
+    """The first coverage block of every shape of a bench batch and of
+    chip_smoke.py's long-title batches (two ``BlockSpy``s)."""
+    from infidex_tpu_torch.ops import _kernels
+
+    bench_spy = cs.first_block_args(torch, it, eng, queries)
+    long_spy, _ = cs.long_titles_phase(torch, it, runtime, bench, _kernels)
+    return bench_spy, long_spy
+
+
+def gather_ab(torch, cs, spies, reps: int) -> dict:
+    """The gather kernel beside the eager gather it replaces
+    (``gather_block_plain`` on the card) on the first coverage block of
+    every shape of a bench batch and of chip_smoke.py's long-title
+    batches: equal fields, then events (eager, kernel, kernel, eager) and
+    device times (the eager gather's kernels summed, the kernel alone,
+    torch.profiler, in the same turns). ``spies``: ``block_spies``."""
+    from infidex_tpu_torch.ops import coverage_kernel as ck
+
+    bench_spy, long_spy = spies
+    out = {}
+    for label, _, shape, a in cs.kernel_blocks(bench_spy, long_spy,
+                                               "gather"):
+        fns = {"old": lambda a=a: ck.gather_block_plain(*a),
+               "new": lambda a=a: ck.gather_block(*a)}
+        want, got = fns["old"](), fns["new"]()
+        torch.cuda.synchronize()
+        same = all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(want, got))
+        times = in_turns(torch, cs, fns, reps)
+        device = {"old": [], "new": []}
+        kernels_a_call = {}
+        for k in ("old", "new", "new", "old"):
+            ms, n = device_total_ms(torch, fns[k], reps)
+            device[k].append(ms)
+            kernels_a_call[k] = n
+        nbytes, _ = cs.gather_bound(a, want)
+        out[label] = dict(shape=list(shape), candidates=int(a[2].numel()),
+                          bit_equal=bool(same), ms=times, device_ms=device,
+                          kernels_a_call=kernels_a_call,
+                          bound_ms=nbytes / cs.HBM_BYTES_S * 1e3,
+                          bound_bytes=nbytes)
+        print(f"[gather] {label} (C {a[2].numel()}): equal {same}; device "
+              f"ms eager {device['old']}, kernel {device['new']}; kernels a "
+              f"call {kernels_a_call}; events ms {times}; bound "
+              f"{nbytes / cs.HBM_BYTES_S * 1e3:.4f} ms ({nbytes} B)",
+              flush=True)
+    return dict(bit_equal=all(v["bit_equal"] for v in out.values()),
+                by_block=out)
 
 
 def build_old(src_dir: str, out_dir: str):
@@ -292,9 +403,11 @@ def old_match(torch, lib, sig, vpop, vlen, elig, qsig, qpop, qlen, cap):
 
 
 def in_turns(torch, cs, fns: dict, reps: int) -> dict:
-    """ms of each of the two callables, timed old, new, new, old."""
-    times = {"old": [], "new": []}
-    for name in ("old", "new", "new", "old"):
+    """ms of each callable, timed old, new, the others, the others in
+    reverse, new, old."""
+    rest = [k for k in fns if k not in ("old", "new")]
+    times = {k: [] for k in fns}
+    for name in ("old", "new", *rest, *reversed(rest), "new", "old"):
         times[name].append(cs.cuda_ms(torch, fns[name], reps=reps))
     return times
 
@@ -425,6 +538,8 @@ def main(argv=None) -> int:
     ap.add_argument("--old-pool-csrc")
     ap.add_argument("--old-edit-csrc")
     ap.add_argument("--old-cov-csrc")
+    ap.add_argument("--gather", action="store_true",
+                    help="the gather kernel beside the eager gather")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "kernel_ab"))
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
@@ -444,17 +559,21 @@ def main(argv=None) -> int:
     card = cs.nvidia_smi_line()
     _kernels.build()
     if not (args.old_csrc or args.old_pool_csrc or args.old_edit_csrc
-            or args.old_cov_csrc):
-        ap.error("give --old-csrc, --old-pool-csrc, --old-edit-csrc or "
-                 "--old-cov-csrc")
+            or args.old_cov_csrc or args.gather):
+        ap.error("give --old-csrc, --old-pool-csrc, --old-edit-csrc, "
+                 "--old-cov-csrc or --gather")
     result = dict(card=card, torch=torch.__version__)
     eng, queries = bench_engine(cs, it, bench)
+    if args.old_cov_csrc or args.gather:
+        spies = block_spies(torch, cs, it, bench, runtime, eng, queries)
     if args.old_cov_csrc:
         lib, resources = build_old_cov(args.old_cov_csrc, args.out)
         print(f"[cov] ptxas: {json.dumps(resources)}", flush=True)
-        result["cov"] = cov_ab(torch, cs, it, bench, runtime, eng, queries,
-                               lib, args.reps)
+        result["cov"] = cov_ab(torch, cs, spies, lib, args.reps,
+                               args.old_cov_csrc)
         result["cov"]["resources"] = resources
+    if args.gather:
+        result["gather"] = gather_ab(torch, cs, spies, args.reps)
     if args.old_edit_csrc:
         lib = build_old_edit(args.old_edit_csrc, args.out)
         result["edit"] = edit_ab(torch, cs, it, bench, runtime, eng, queries,

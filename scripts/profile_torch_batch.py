@@ -5,15 +5,16 @@
 Indexes bench.py's corpus (1M docs by default) with infidex_tpu_torch on
 CUDA, warms up with two batches, then serves one batch under
 torch.profiler (CPU + CUDA activity: device kernel time, kernel count,
-idle share = 1 - device time / wall) and two more under cProfile (host
-time by function, pipeline threads included). Both are taken twice over,
-in turns, on the same batches: with the fake-LCS and the scorer + fusion
-program of the coverage program as eager PyTorch (``coverage_lcs_plain``
-and ``coverage_fusion_plain`` after the pair and cascade kernels: the
-route before ``csrc/coverage_lcs.cu`` and ``csrc/coverage_fusion.cu``,
-"plain fusion"), and with the four kernels ("kernel"). ``--with-plain``
-adds a third route, "plain", with no kernel in the coverage program. The
-route is swapped by rebinding the coverage module's four dispatchers, not
+idle share = 1 - device time / wall, the device time of ``aten::index``)
+and two more under cProfile (host time by function, pipeline threads
+included). Both are taken twice over, in turns, on the same batches: with
+the coverage block's gather as eager PyTorch (``gather_block_plain``
+before the four kernels: the route before ``csrc/coverage_gather.cu``,
+"eager gather"), and with the five kernels ("kernel"). ``--with-plain``
+first adds two routes: "plain", with no kernel in the coverage program,
+and "plain fusion", with the fake-LCS and the scorer + fusion program as
+eager PyTorch (``coverage_lcs_plain``, ``coverage_fusion_plain``). The
+route is swapped by rebinding the coverage module's five dispatchers, not
 by an option of the package. Prints the card's name and power limit and a
 summary (kernels a coverage block, ``_coverage_block`` host ms a block),
 and writes the full tables to DIR/profile_torch_{route}.txt and
@@ -35,14 +36,18 @@ sys.path.insert(0, ROOT)
 BATCH = 128
 #: functions whose cProfile rows the summary prints
 WATCH = ("_dispatch_chunk", "coverage_fusion_batch", "_coverage_block",
+         "gather_block", "gather_block_plain", "coverage_gather",
          "coverage_pairs", "coverage_pairs_plain", "coverage_cascade",
          "coverage_cascade_plain", "coverage_lcs", "coverage_lcs_plain",
          "coverage_fusion", "coverage_fusion_plain", "_dispatch_group",
          "_collect_group", "_device_collect", "stage1_scatter_lanes",
          "_assemble_prior")
-#: the hand kernels of the coverage program
-COVERAGE_KERNELS = ("coverage_pairs", "coverage_cascade", "coverage_lcs",
-                    "coverage_fusion")
+#: the coverage program's dispatchers, by the name of their kernel
+COVERAGE_KERNELS = {"gather_block": "coverage_gather_kernel",
+                    "coverage_pairs": "coverage_pairs_kernel",
+                    "coverage_cascade": "coverage_cascade_kernel",
+                    "coverage_lcs": "coverage_lcs_kernel",
+                    "coverage_fusion": "coverage_fusion_kernel"}
 
 
 def main(argv=None):
@@ -91,8 +96,8 @@ def main(argv=None):
 
     kernels = tuple(getattr(ck, name) for name in COVERAGE_KERNELS)
     plain = tuple(getattr(ck, name + "_plain") for name in COVERAGE_KERNELS)
-    routes = {"plain": plain, "plain fusion": kernels[:2] + plain[2:],
-              "kernel": kernels}
+    routes = {"plain": plain, "plain fusion": kernels[:3] + plain[3:],
+              "eager gather": plain[:1] + kernels[1:], "kernel": kernels}
 
     def take(route):
         for name, fn in zip(COVERAGE_KERNELS, routes[route]):
@@ -112,16 +117,20 @@ def main(argv=None):
         on_card = [e for e in ka if str(e.device_type).endswith("CUDA")]
         dev_s = sum(e.self_device_time_total for e in on_card) / 1e6
         n_kernels = sum(e.count for e in on_card)
-        hand = {name: sum(e.self_device_time_total for e in on_card
-                          if name + "_kernel" in e.key) / 1e3
-                for name in COVERAGE_KERNELS}
+        hand = {kernel: sum(e.self_device_time_total for e in on_card
+                            if kernel in e.key) / 1e3
+                for kernel in COVERAGE_KERNELS.values()}
+        index = [e for e in ka if e.key == "aten::index"]
+        index_ms = sum(e.self_device_time_total for e in index) / 1e3
+        index_calls = sum(e.count for e in index)
         print(f"[profiler, {route}] batch wall {wall * 1e3:.1f} ms; "
               f"device kernel time {dev_s * 1e3:.1f} ms in {n_kernels} "
               f"kernels; idle share {1 - dev_s / wall:.4f}; {len(blocks)} "
               f"coverage blocks, {n_kernels / max(len(blocks), 1):.0f} "
               f"kernels a block (Stage 1 included); hand-kernel launches "
               f"{dict(_kernels.launch_counts)}, device ms of the coverage "
-              f"kernels {hand}", flush=True)
+              f"kernels {hand}; aten::index {index_ms:.3f} ms device in "
+              f"{index_calls} calls", flush=True)
         tag = route.replace(" ", "_")
         with open(os.path.join(args.out, f"profile_torch_{tag}.txt"),
                   "w") as f:
@@ -156,8 +165,8 @@ def main(argv=None):
                       f"({v[3] * 1e3 / max(v[1], 1):.2f} ms a call), self "
                       f"{v[2] * 1e3:.1f} ms")
 
-    turns = (("plain",) if args.with_plain else ()) + (
-        "plain fusion", "kernel", "kernel", "plain fusion")
+    turns = (("plain", "plain fusion") if args.with_plain else ()) + (
+        "eager gather", "kernel", "kernel", "eager gather")
     try:
         for route in turns:
             profiled(route)

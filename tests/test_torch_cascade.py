@@ -22,14 +22,12 @@ classes; the pair words come from ``coverage_pairs_plain``.
 """
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_coverage_lcs import compile_cell
 from infidex_tpu_torch import runtime
 from infidex_tpu_torch.ops import _kernels
 from infidex_tpu_torch.ops import coverage_kernel as ck
@@ -185,34 +183,25 @@ def cascade_args(a):
 
 
 _HOST_LOOP = r"""
+#include <cstring>
+#include <vector>
 #include "coverage_cascade_cell.cuh"
+// The kernel's steps for each tile of candidates: the tile's rows copied
+// into a scratch that starts out as 0x7f bytes (a row the copy skipped
+// reads as that), then each candidate by a group of G = min(D, 32) lanes
+// (a loop over them), from the tile.
 template <int D>
-static void run(const int* pairs, const int* lens, const int* offsets,
-                const int* codes, const int* first_char, const int* tok_count,
-                const int* qlens, const int* qsorted, const int* qc,
-                const int* qcount, int n_q, int n_l, int n_c,
-                const cascade::Config& cfg, float* term_matched,
-                unsigned char* whole, unsigned char* joined,
-                unsigned char* prefix, int* first_pos, int* word_hits,
-                int* cov_count) {
-  for (int c = 0; c < n_c; ++c) {
-    cascade::In in;
-    in.pairs = pairs + c; in.lens = lens + c; in.offsets = offsets + c;
-    in.codes = codes + c; in.first_char = first_char + c;
-    in.qlens = qlens + c; in.qsorted = qsorted + c; in.qfirst = qc + c;
-    in.qfirst_stride = (long long)n_l * n_c; in.stride = n_c;
-    in.tok_count = tok_count[c]; in.qcount = qcount[c];
-    float tm[16]; int fp[16];
-    cascade::Out out;
-    cascade::candidate<D>(in, n_q, cfg, tm, fp, 1, out);
-    for (int i = 0; i < n_q; ++i) {
-      const long long at = (long long)i * n_c + c;
-      term_matched[at] = tm[i]; first_pos[at] = fp[i];
-      whole[at] = (out.has_whole >> i) & 1u;
-      joined[at] = (out.has_joined >> i) & 1u;
-      prefix[at] = (out.has_prefix >> i) & 1u;
+static void run(const cascade::Args& a) {
+  constexpr int G = D < 32 ? D : 32;
+  std::vector<int> tile(cascade::layout<D>(a.n_q).ints);
+  const grp::Group<G> g;
+  for (int c0 = 0; c0 < a.n_c; c0 += cascade::kTile) {
+    std::memset(tile.data(), 0x7f, 4 * tile.size());
+    cascade::stage<D>(a, c0, 0, 1, tile.data());
+    for (int t = 0; t < cascade::kTile && c0 + t < a.n_c; ++t) {
+      const cascade::In in = cascade::tile_in<D>(a, tile.data(), c0, t);
+      cascade::candidate<D, G>(g, in, a, c0 + t);
     }
-    word_hits[c] = out.word_hits; cov_count[c] = out.cov_count;
   }
 }
 extern "C" int coverage_cascade_host(const int* pairs, const int* lens,
@@ -221,13 +210,16 @@ extern "C" int coverage_cascade_host(const int* pairs, const int* lens,
     const int* qcount, int n_q, int n_l, int n_d, int n_c, const int* cfg,
     float* term_matched, unsigned char* whole, unsigned char* joined,
     unsigned char* prefix, int* first_pos, int* word_hits, int* cov_count) {
-  const cascade::Config config = {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4],
-                                  cfg[5], cfg[6], cfg[7], cfg[8]};
-#define RUN(D) run<D>(pairs, lens, offsets, codes, first_char, tok_count, \
-    qlens, qsorted, qc, qcount, n_q, n_l, n_c, config, term_matched, whole, \
-    joined, prefix, first_pos, word_hits, cov_count)
-  if (n_d == 8) RUN(8); else if (n_d == 16) RUN(16);
-  else if (n_d == 64) RUN(64); else return 1;
+  const cascade::Args a = {
+      pairs, lens, offsets, codes, first_char, tok_count, qlens, qsorted, qc,
+      qcount, n_q, n_l, n_c,
+      {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4], cfg[5], cfg[6], cfg[7],
+       cfg[8]},
+      term_matched, whole, joined, prefix, first_pos, word_hits, cov_count};
+  if (n_d == 8) run<8>(a);
+  else if (n_d == 16) run<16>(a);
+  else if (n_d == 64) run<64>(a);
+  else return 1;
   return 0;
 }
 """
@@ -235,21 +227,10 @@ extern "C" int coverage_cascade_host(const int* pairs, const int* lens,
 
 @pytest.fixture(scope="module")
 def host_cascade(tmp_path_factory):
-    """csrc/coverage_cascade_cell.cuh compiled with g++ behind a loop over
-    the candidates in the kernel's own addressing; returns the seven
-    outputs as tensors (``cov_count`` int32)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++")
-    tmp = tmp_path_factory.mktemp("cascade_cell")
-    src, so = tmp / "cascade.cpp", tmp / "libcascade_cell.so"
-    src.write_text(_HOST_LOOP)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-I",
-                    os.path.join(os.path.dirname(_kernels.__file__), "..",
-                                 "csrc"), "-o", str(so), str(src)],
-                   check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    """csrc/coverage_cascade_cell.cuh compiled with g++ behind the kernel's
+    steps (tiles of candidates, a group of lanes per candidate); returns
+    the seven outputs as tensors (``cov_count`` int32)."""
+    lib = compile_cell(tmp_path_factory, "cascade_cell", _HOST_LOOP)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.coverage_cascade_host.argtypes = [p] * 10 + [i] * 4 + [p] * 8
     lib.coverage_cascade_host.restype = i
@@ -427,7 +408,31 @@ KNOWN = {
     # a repeated doc word is coverable twice and matchable once
     "repeated_doc_word": (["beta", "beta"], ["beta", "beta"], {}, dict(
         term_matched=[4.0, 0.0, 0, 0], word_hits=1, cov_count=2)),
+    # the doc-joined walk: "ab"+"cd" takes the first query word and both
+    # tokens, so "cd"+"ef" is never a pair; "cdef" is then ended by "ef"
+    "doc_joined_chain": (["ab", "cd", "ef"], ["abcd", "cdef"], {}, dict(
+        term_matched=[4.0, 2.0, 0, 0],
+        term_has_joined=[True, False, False, False],
+        term_has_prefix=[True, False, False, False],
+        term_first_pos=[0, 6, -1, -1], word_hits=2)),
+    # two doc-joined pairs, each taking its own query word
+    "doc_joined_two_pairs": (["ab", "cd", "abc", "de"], ["abcd", "abcde"],
+                             {}, dict(
+        term_matched=[4.0, 5.0, 0, 0],
+        term_has_joined=[True, True, False, False],
+        term_first_pos=[0, 6, -1, -1], word_hits=2)),
 }
+
+#: Each query token takes at most one credit (single consumption), so no
+#: term_matched is a sum of several; what its bits pin is that each credit
+#: is rounded once, in f32, as the plain version rounds it. The
+#: "contained" credit of a 7-char word, 0.6 x 7 in f32, differs in its
+#: last bit from the product rounded from f64 (4.2000003 against 4.2).
+KNOWN["contained_one_rounding"] = (["xbetagamx"], ["betagam"], {}, dict(
+    term_matched=[float(np.float32(7) * np.float32(0.6)), 0, 0, 0],
+    term_has_prefix=[False] * 4, term_first_pos=[0, -1, -1, -1],
+    word_hits=1))
+assert np.float32(7) * np.float32(0.6) != np.float32(7 * 0.6)
 
 
 @pytest.mark.parametrize("case", list(KNOWN))
@@ -443,6 +448,103 @@ def test_known_candidates(host_cascade, case):
             got = state[name].reshape(-1).tolist()
             assert got == (value if isinstance(value, list) else [value]), \
                 (name, got)
+
+
+def _full_docs(seed, Q, L, D, n_c):
+    """``make_inputs`` with a third of the candidates at tok_count 0 and a
+    third at tok_count D whose query words come from their last tokens, so
+    that matches fall on the last lanes (and, at D 64, on the second token
+    of a lane)."""
+    a = make_inputs(seed, Q, L, D, n_c)
+    rng = np.random.default_rng(seed + 1)
+    vocab = {}
+    for c in range(n_c):
+        if c % 3 == 0:
+            a["tok_count"][c] = 0
+            continue
+        if c % 3 == 2:
+            continue
+        docs = [_word(rng, 2, min(L, 9)) for _ in range(D)]
+        for k in rng.integers(D // 2, D, size=2):
+            docs[k] = list(docs[D - 1 - int(rng.integers(2))])   # repeats
+        a["tok_count"][c] = D
+        a["codes"][:, c] = -1
+        a["dc"][:, :, c] = a["dr"][:, :, c] = 0
+        a["dl"][:, c] = 0
+        for d, w in enumerate(docs):
+            a["codes"][d, c] = vocab.setdefault(tuple(w), len(vocab))
+            a["dl"][d, c] = len(w)
+            a["dc"][:len(w), d, c] = w
+            a["dr"][:len(w), d, c] = w[::-1]
+            a["offsets"][d, c] = 10 * d
+        words = _query_words(rng, docs[-3:], Q, L)
+        a["qcount"][c] = Q
+        a["ql"][:, c] = 0
+        a["qc"][:, :, c] = a["qr"][:, :, c] = 0
+        for q, w in enumerate(words):
+            a["ql"][q, c] = len(w)
+            a["qc"][q, :len(w), c] = w
+            a["qr"][q, :len(w), c] = w[::-1]
+        a["qsorted"][:, c] = sorted(range(Q), key=lambda i: -len(words[i]))
+    return a
+
+
+@pytest.mark.parametrize("config", ["default", "no_whole_no_joined"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_lane_groups_at_token_counts_0_and_d(host_cascade, shape, config):
+    """Each group width the kernel runs (8, 16 and 32 lanes at D 8, 16 and
+    64; two tokens a lane at D 64) with a third of the candidates at
+    tok_count 0 and a third at tok_count D: equal to the plain version,
+    with matches on tokens of the last lanes."""
+    Q, L, D = SHAPES[shape]
+    args = cascade_args(_full_docs(_seed(shape, config) + 31, Q, L, D,
+                                   3 * C))
+    want = ck.coverage_cascade_plain(*args, CONFIGS[config])
+    assert_same_state(host_cascade(args, CONFIGS[config]), want)
+    first_pos, hits, tok = want[4], want[5], args[5]
+    full = tok == D
+    assert (tok == 0).sum() >= C and full.sum() >= C
+    assert (hits[tok == 0] == 0).all()
+    # the queries of full docs hit their last three tokens (offsets 10 d)
+    assert (first_pos[:, full] >= 10 * (D - 3)).any()
+
+
+_MAX_INT = r"""
+#include "lane_group.cuh"
+// grp::max_int over each row of G values: one group per row
+template <int G>
+static void run(const int* vals, int n_rows, int* out) {
+  const grp::Group<G> g;
+  for (int r = 0; r < n_rows; ++r) {
+    out[r] = grp::max_int(g, [&](int l) { return vals[r * G + l]; });
+  }
+}
+extern "C" int max_int_host(const int* vals, int g, int n_rows, int* out) {
+  if (g == 1) run<1>(vals, n_rows, out);
+  else if (g == 8) run<8>(vals, n_rows, out);
+  else if (g == 16) run<16>(vals, n_rows, out);
+  else if (g == 32) run<32>(vals, n_rows, out);
+  else return 1;
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 16, 32])
+def test_lane_group_max_int(tmp_path_factory, lanes):
+    """``grp::max_int`` (csrc/lane_group.cuh), the collective of the
+    cascade's longest-then-first picks, in its host build: the largest of
+    each group's values, negatives and ties included."""
+    lib = compile_cell(tmp_path_factory, f"max_int_{lanes}", _MAX_INT)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.max_int_host.argtypes = [p, i, i, p]
+    lib.max_int_host.restype = i
+    rng = np.random.default_rng(lanes)
+    vals = rng.integers(-5, 3, size=(64, lanes)).astype(np.int32)
+    vals[0] = -1
+    out = np.full(64, 99, np.int32)
+    assert lib.max_int_host(vals.ctypes.data, lanes, 64, out.ctypes.data) == 0
+    assert (out == vals.max(axis=1)).all()
 
 
 def test_cpu_tensors_never_reach_the_kernel_wrapper():

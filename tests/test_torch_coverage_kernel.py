@@ -25,6 +25,7 @@ semantics); the test bounds the difference at 1 ulp.
 import random
 import string
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -143,6 +144,55 @@ def test_coverage_fusion_batch_matches_reference(seed, bucket, with_lcs):
     _assert_close(want, got.numpy(), ~jt.overflow[args[0]])
 
 
+#: words of 13-24 chars, which an L-12 block holds only in part
+LONG_WORDS = ["thirteenchars", "redemptionshawshank", "abcdefghijklmnopqrstuvwx"]
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("bucket", ["small", "narrow"])
+def test_coverage_fusion_batch_matches_reference_on_edge_inputs(seed, bucket):
+    """The edges of the coverage block's gather, in both packages from the
+    same numpy inputs: docs of up to 12 tokens (more than the small
+    block's 8), words of 13-24 chars (an L-12 block reads their first 12),
+    and codes of -1 inside a doc's token count (tokens without a word),
+    set in both packages' doc tables alike."""
+    rng, setup, lower, encs, jt, pt = _setup(
+        seed, first_queries=("redemptionshawshank star", "thirteenchar"))
+    rng_docs = random.Random(seed)
+    texts = [" ".join(rng_docs.choice(T.WORDS + LONG_WORDS)
+                      for _ in range(rng_docs.randint(1, 12)))
+             for _ in range(40)]
+    lower = [t.lower() for t in texts]
+    delims = T.make_tokenizer().tokenizer_setup.delimiter_set
+    jt = ref.CoverageTables.build(lower, delims)
+    pt = convert.coverage_tables_from_reference(jt)
+    tokens = np.asarray(jt.doc_tokens).copy()
+    count = np.asarray(jt.doc_tok_count)
+    for n in range(0, len(lower), 3):          # a token without a word
+        if count[n] > 1:
+            tokens[n, rng_docs.randrange(count[n])] = -1
+    jt_tables = list(_tables(jt))
+    pt_tables = list(_tables(pt))
+    jt_tables[3] = jnp.asarray(tokens)
+    pt_tables[3] = torch.from_numpy(tokens)
+    d_cap, l_cap = BUCKETS[bucket]
+    config = ref.CoverageConfig.from_setup(setup)._replace(d_cap=d_cap)
+    args = _args(rng, encs, len(lower), l_cap)
+    la = _lcs_args(rng, len(encs))
+    want = ref.coverage_fusion_batch(*jt_tables, *args, jt.text_chars,
+                                     jt.lcs_ok, *la, config=config)
+    got = port.coverage_fusion_batch(*pt_tables, *args, pt.text_chars,
+                                     pt.lcs_ok, *la, config=config)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    _assert_close(want, got.numpy(), ~jt.overflow[args[0]])
+    # the inputs hold what they are meant to
+    assert (count > 8).any() and (count < 8).any()
+    assert (np.asarray(jt.word_lens) > 12).any()
+    inside = np.arange(tokens.shape[1])[None] < count[:, None]
+    assert ((tokens < 0) & inside).any()
+    assert (np.asarray(got[1]) > 0).any()        # word hits
+
+
 #: settings other than the default that the matcher cascade branches on
 VARIANTS = {
     "one_typo": dict(num_typos=1),
@@ -221,10 +271,10 @@ def test_row_blocks_do_not_change_results(monkeypatch):
 
 @pytest.mark.parametrize("bucket", sorted(BUCKETS))
 def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
-    """Per row block: one pair call with distances (the coverage query
-    tokens), one without (the fusion query tokens), one cascade call over
-    the first's words; the relations and the eager cascade are reached
-    through the plain versions only."""
+    """Per row block: one gather call, then one pair call with distances
+    (the coverage query tokens), one without (the fusion query tokens), one
+    cascade call over the first's words; the eager gather, the relations
+    and the eager cascade are reached through the plain versions only."""
     rng, setup, lower, encs, jt, pt = _setup(5)
     d_cap, l_cap = BUCKETS[bucket]
     config = ref.CoverageConfig.from_setup(setup)._replace(d_cap=d_cap)
@@ -233,6 +283,16 @@ def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
     calls = []
     pairs, cascade = port.coverage_pairs, port.coverage_cascade
     plain_pairs = port.coverage_pairs_plain
+    gather, plain_gather = port.gather_block, port.gather_block_plain
+
+    def gather_spy(*a):
+        out = gather(*a)
+        calls.append(("gather", out))
+        return out
+
+    def plain_gather_spy(*a):
+        calls.append(("plain gather",))
+        return plain_gather(*a)
 
     def pairs_spy(*a, distances):
         out = pairs(*a, distances=distances)
@@ -240,7 +300,7 @@ def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
         return out
 
     def cascade_spy(*a):
-        calls.append(("cascade", a[0], a[-1]))
+        calls.append(("cascade", a[0], a[-1], a[1]))
         return cascade(*a)
 
     def plain_pairs_spy(*a):
@@ -250,16 +310,20 @@ def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
     monkeypatch.setattr(port, "coverage_pairs", pairs_spy)
     monkeypatch.setattr(port, "coverage_cascade", cascade_spy)
     monkeypatch.setattr(port, "coverage_pairs_plain", plain_pairs_spy)
+    monkeypatch.setattr(port, "gather_block", gather_spy)
+    monkeypatch.setattr(port, "gather_block_plain", plain_gather_spy)
     monkeypatch.setattr(port, "ROW_BLOCK", 100)
     n_blocks = -(-args[0].size // 100)
     got = port.coverage_fusion_batch(*_tables(pt), *args, config=config)
     assert torch.equal(got, want)
     # the spied dispatchers are the only callers of the plain versions here
-    assert [c[0] for c in calls] == ["plain pairs", "pairs", "cascade",
-                                     "plain pairs", "pairs"] * n_blocks
-    for i in range(0, len(calls), 5):
-        _, (_, with_dist, words), (_, seen, cfg), _, (_, f_dist, f_words) = \
-            calls[i:i + 5]
+    assert [c[0] for c in calls] == ["plain gather", "gather", "plain pairs",
+                                     "pairs", "cascade", "plain pairs",
+                                     "pairs"] * n_blocks
+    for i in range(0, len(calls), 7):
+        (_, (_, g), _, (_, with_dist, words), (_, seen, cfg, lens), _,
+         (_, f_dist, f_words)) = calls[i:i + 7]
+        assert isinstance(g, port.GatheredBlock) and lens is g.lens
         assert with_dist is True and f_dist is False
         assert seen is words and cfg == config
         assert words.dtype == torch.int32 and (words >> 16).any()
@@ -291,9 +355,9 @@ def test_pair_words_round_trip():
 @pytest.mark.gpu
 @pytest.mark.parametrize("bucket,with_lcs", CASES)
 def test_cuda_program_equals_cpu_program(bucket, with_lcs):
-    """The whole program on the card (pair and cascade kernels) against
-    the CPU (plain versions): bit-identical, one cascade and two pair
-    launches per row block."""
+    """The whole program on the card (gather, pair and cascade kernels)
+    against the CPU (plain versions): bit-identical, one gather, one
+    cascade and two pair launches per row block."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     rng, setup, lower, encs, jt, pt = _setup(
@@ -312,6 +376,7 @@ def test_cuda_program_equals_cpu_program(bucket, with_lcs):
     got = port.coverage_fusion_batch(*on_card, config=config)
     assert got.is_cuda and torch.equal(got.cpu().view(torch.int32),
                                        want.view(torch.int32))
+    assert _kernels.launch_counts["coverage_gather"] == 1
     assert _kernels.launch_counts["coverage_cascade"] == 1
     assert _kernels.launch_counts["coverage_pairs"] == 2
 
