@@ -34,7 +34,18 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      them), the kernel's device time
      (torch.profiler, one session per kernel and block) and its
      CUDA-event time per back-to-back call beside the bound and one run of
-     the plain version in each of two turns.
+     the plain version in each of two turns. Then the four Stage-1
+     epilogue kernels ("2 stage1 epilogue kernels": the fuzzy groups'
+     presence bitset and df, the pass over [n_q, n_pad] that adds them and
+     the live mask and takes the count row max, the exact stable top-k,
+     the LIM rows), each against its plain version on the bench batch's
+     first Stage-1 group (128 x 1,048,576; top-k at k 500 and 20,000) and
+     on a tie-heavy index (k 500 and 2,000): bit-equal, two identical
+     runs, one launch per call, the device time (torch.profiler) beside
+     the plain version's in turns, the bound, and the library call's time
+     (``torch.topk`` over the int64 keys; the LIM's masked ``torch.topk``).
+     Phase 7 does the same on its batch's first group, whose fuzzy groups
+     come from the signature matcher.
   3. Cross-device phase: the 3000-doc engine test's corpus and 64 queries,
      indexed and served once on the CPU and once on the card; ids and
      scores must be identical. Single ``search`` calls are compared the
@@ -47,7 +58,10 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      gather, cascade, fake-LCS and fusion kernels once and the pair
      kernel twice per coverage block (so on every other path that serves
      batches below: long titles, large vocabulary, segments, pool scoring
-     and sharded, whose [3, C] layout has no fake-LCS).
+     and sharded, whose [3, C] layout has no fake-LCS), and the epilogue's
+     pass, top-k and LIM kernels once per Stage-1 group (per shard on the
+     sharded path), its fuzzy kernel once per group with fuzzy groups, and
+     the top-k once more per pool-scored dispatch.
      Prints per-batch wall ms, queries per second, device calls, host
      fallbacks, peak device memory and the top hit of a typo query.
   5. ``--recall``: recall@10 against the depth oracle (bench.py's
@@ -183,20 +197,25 @@ def device_ms_each(torch, fns, kernel: str, reps: int,
     launches the kernel once a run. With a list for ``launches``, each
     function's launch as the profiler's trace recorded it (grid, block,
     registers a thread, shared memory bytes; one for all its launches) is
-    appended there. A session whose records miss any of its launches
-    fails the phase."""
+    appended there. A session whose records miss any of its launches is
+    taken again, up to three sessions (on an H100 sessions have dropped a
+    record now and then); a function none of whose sessions holds every
+    launch fails the phase."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = []
     for fn in fns:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+        for _ in range(3):
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type
-                  == DeviceType.CUDA and kernel in e.name]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events() if e.device_type
+                      == DeviceType.CUDA and kernel in e.name]
+            if len(events) == reps:
+                break
         check(len(events) == reps,
               f"the profiler saw {len(events)} launches of {kernel} in a "
               f"session of {reps} calls (block {len(out) + 1} of "
@@ -647,7 +666,7 @@ def long_titles_phase(torch, it, runtime, bench, _kernels):
     eng = build_engine(it, titles)
     build_s = time.perf_counter() - t0
     _kernels.reset_launch_counts()
-    with BlockSpy(ck) as spy:
+    with BlockSpy(ck) as spy, Stage1Count() as epi:
         walls, results = [], []
         for qs in (short_q, long_q):
             t0 = time.perf_counter()
@@ -667,6 +686,7 @@ def long_titles_phase(torch, it, runtime, bench, _kernels):
         check(any(shape[2] == d for shape in spy.blocks),
               f"long titles: no coverage block of {d} doc tokens")
     check_per_block(counts, n_blocks, "long titles")
+    epi.check(counts, "long titles")
     return spy, counts
 
 
@@ -1353,6 +1373,389 @@ def fusion_phase(torch, bench_spy, long_spy, _kernels):
     return out
 
 
+class Stage1Count:
+    """While active, counts the Stage-1 groups that reach the epilogue: a
+    resident or streamed group (``DeviceIndex._dispatch_group``) once, a
+    sharded one (``ShardedDeviceIndex._search_group``) once per shard;
+    those of them whose queries have fuzzy groups; and the pool-scored
+    dispatches (``pool_score``), whose top-k is the epilogue's kernel too."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from infidex_tpu_torch.index import device
+        from infidex_tpu_torch.parallel import sharding
+
+        self.groups = self.fuzzy = self.pools = 0
+        self._orig = (device.DeviceIndex._dispatch_group,
+                      sharding.ShardedDeviceIndex._search_group,
+                      device.pool_score)
+        dispatch, search, pool = self._orig
+
+        def has_fz(queries):
+            return any(np.asarray(g).size for q in queries
+                       for g in (q[2] or ()))
+
+        def group(index, queries, *a, **kw):
+            self.groups += 1
+            self.fuzzy += has_fz(queries)
+            return dispatch(index, queries, *a, **kw)
+
+        def shard_group(index, queries, *a, **kw):
+            self.groups += len(index.mesh)
+            self.fuzzy += len(index.mesh) * has_fz(queries)
+            return search(index, queries, *a, **kw)
+
+        def pooled(*a, **kw):
+            self.pools += 1
+            return pool(*a, **kw)
+
+        device.DeviceIndex._dispatch_group = group
+        sharding.ShardedDeviceIndex._search_group = shard_group
+        device.pool_score = pooled
+        return self
+
+    def __exit__(self, *exc):
+        from infidex_tpu_torch.index import device
+        from infidex_tpu_torch.parallel import sharding
+
+        (device.DeviceIndex._dispatch_group,
+         sharding.ShardedDeviceIndex._search_group,
+         device.pool_score) = self._orig
+
+    def check(self, counts, what: str) -> None:
+        """One epilogue, top-k and LIM launch per group (and shard), one
+        fuzzy launch per group with fuzzy groups, one more top-k per pool
+        dispatch."""
+        check(self.groups > 0 and counts["stage1_epilogue"]
+              == counts["stage1_lim"] == self.groups
+              and counts["stage1_topk"] == self.groups + self.pools
+              and counts["stage1_fuzzy"] == self.fuzzy,
+              f"{what}: epilogue launches {counts} for {self.groups} "
+              f"Stage-1 groups ({self.fuzzy} with fuzzy groups) and "
+              f"{self.pools} pool dispatches")
+        log(f"[{what}] Stage-1 epilogue: {self.groups} groups "
+            f"({self.fuzzy} with fuzzy groups), {self.pools} pool "
+            f"dispatches: fuzzy {counts['stage1_fuzzy']}, pass "
+            f"{counts['stage1_epilogue']}, top-k {counts['stage1_topk']}, "
+            f"LIM {counts['stage1_lim']} launches")
+
+
+#: the JAX program each epilogue kernel replaces (file:line)
+EPILOGUE_REPLACES = {
+    "stage1_fuzzy": "infidex_tpu/index/device.py:415",
+    "stage1_epilogue": "infidex_tpu/index/device.py:466",
+    "stage1_topk": "infidex_tpu/index/device.py:150",
+    "stage1_lim": "infidex_tpu/index/device.py:202"}
+#: kernel names in the profiler's records (the fuzzy wrapper launches two)
+EPILOGUE_NAMES = {"stage1_fuzzy": "stage1_fuzzy_",
+                  "stage1_epilogue": "stage1_epilogue_kernel",
+                  "stage1_topk": "stage1_topk_kernel",
+                  "stage1_lim": "stage1_lim_kernel"}
+
+
+def kernel_ms(torch, fn, sub: str, reps: int):
+    """Device ms of one call of ``fn`` (run before) from a torch.profiler
+    session of ``reps`` calls: each kernel whose name contains ``sub``, its
+    mean over the records the session kept, summed over the names. A
+    session may drop records (on an H100 one kept 119 of 140, another none
+    of ten): one that kept fewer than half a name's launches is taken
+    again, up to three sessions, and then the time is the CUDA events'
+    (which hold the wrapper's host time too). Returns (ms, records by name,
+    "profiler" or "events")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and sub in e.name:
+                by.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        kept = {name: len(v) for name, v in by.items()}
+        if by and all(2 * n >= reps for n in kept.values()):
+            return (sum(sum(v) / len(v) for v in by.values()) / 1e3, kept,
+                    "profiler")
+    return cuda_ms(torch, fn, reps, warm=False), kept, "events"
+
+
+def tie_corpus(n: int = 3000, seed: int = 5):
+    """tests/test_lim_class.py's tie-heavy titles: two words over ten
+    syllables, so that thousands of docs score alike."""
+    rng = random.Random(seed)
+    syll = ["ba", "ce", "do", "fa", "gi", "ha", "ji", "ka", "lo", "me"]
+    return [f"Yorin{rng.choice(syll)} {rng.choice(syll).title()}zen"
+            for _ in range(n)]
+
+
+def stage1_group(torch, dev_index, preps):
+    """The first Stage-1 group of ``preps`` as ``_dispatch_group`` builds it
+    before the epilogue: the scattered score and count matrices (the lane
+    kernel), the fuzzy tables (None without fuzzy groups) and their
+    count."""
+    from infidex_tpu_torch.index import device as D
+    from infidex_tpu_torch.ops import stage1_lanes as lanes
+
+    lo, hi = D.split_batch_by_lanes(dev_index.built, preps)[0]
+    qs = preps[lo:hi]
+    prep = D.prepare_batch_arrays(dev_index.built, qs)
+    fz_starts, fz_lens, fz_group, grp_query, _, n_grp = prep[6:]
+    n_q, n_pad = len(qs), dev_index.n_pad
+    scores = torch.zeros(n_q * n_pad, dtype=torch.float32,
+                         device=dev_index.device)
+    cnt = torch.zeros_like(scores)
+    lanes.scatter_lanes(scores, cnt, dev_index._chunks(qs, prep),
+                        dev_index.postings_docs, dev_index.cfac, 0, n_pad)
+    fz = (D.fuzzy_groups(fz_starts, fz_lens, fz_group, grp_query, n_q,
+                         dev_index.device) if n_grp else None)
+    return scores.view(n_q, n_pad), cnt.view(n_q, n_pad), fz, n_grp
+
+
+def unpack_bits(torch, bits, width: int):
+    """A presence bitset (int32 [n_grp, words]) as bool [n_grp, width], and
+    whether any bit past the width is set."""
+    shift = torch.arange(32, device=bits.device, dtype=torch.int32)
+    flat = ((bits[:, :, None] >> shift) & 1).reshape(bits.shape[0], -1)
+    return flat[:, :width].bool(), bool(flat[:, width:].any())
+
+
+def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str):
+    """The four epilogue kernels against their plain versions on the first
+    Stage-1 group of ``preps``: presence bits and df, the pass's scores,
+    counts and row maxima, the top-k at each depth of ``ks`` and the LIM
+    rows at the first, each bit-equal and alike in two runs; then each
+    kernel's device time (torch.profiler) beside its plain version's
+    (events), in turns, its bound from this group's data, and the library
+    call's time where one computes the same (``torch.topk`` over the int64
+    keys; the LIM's masked ``torch.topk``). Returns the measurements by
+    kernel (the top-k's by depth under "by_k")."""
+    from infidex_tpu_torch.index import device as D
+
+    scores, cnt, fz, n_grp = stage1_group(torch, dev_index, preps)
+    n_q, n_pad = scores.shape
+    ks = [min(k, n_pad) for k in ks]
+    live = dev_index.live_mask
+    dev = scores.device
+    f32 = torch.float32
+    out, runs = {}, {}
+
+    def equal(a, b):
+        if a.dtype == f32:
+            return a.shape == b.shape and torch.equal(
+                a.contiguous().view(torch.int32),
+                b.contiguous().view(torch.int32))
+        return torch.equal(a, b)
+
+    # 1. the fuzzy groups' presence and df
+    bits = dense = fidf = q_off = q_grp = None
+    if n_grp:
+        fargs = (dev_index.postings_docs, fz.d_starts, fz.d_group, fz.d_cum,
+                 fz.n_lanes, n_grp, 0, n_pad)
+
+        def fuzzy_plain():
+            p = D.fuzzy_presence_plain(dev_index.postings_docs, fz.starts,
+                                       fz.lens, fz.group, n_grp, 0, n_pad)
+            return p, p.sum(dim=1).to(torch.int32)
+
+        dense, df_p = fuzzy_plain()
+        n0 = _kernels.launch_counts["stage1_fuzzy"]
+        bits, df = _kernels.stage1_fuzzy(*fargs)
+        bits2, df2 = _kernels.stage1_fuzzy(*fargs)
+        torch.cuda.synchronize()
+        check(_kernels.launch_counts["stage1_fuzzy"] - n0 == 2,
+              "fuzzy kernel: not one launch per call")
+        inside, past = unpack_bits(torch, bits, n_pad)
+        check(torch.equal(inside, dense > 0) and not past
+              and torch.equal(df, df_p),
+              f"fuzzy kernel ({label}): presence or df differ from the "
+              f"plain version")
+        check(torch.equal(bits, bits2) and torch.equal(df, df2),
+              f"fuzzy kernel ({label}): two runs differ")
+        del inside, bits2, df2
+        fidf = D.fuzzy_idf(df, torch.tensor(float(dev_index.num_docs),
+                                            dtype=f32, device=dev),
+                           torch.tensor(1_250_000.0, dtype=f32, device=dev))
+        q_off, q_grp = fz.d_qoff, fz.d_qgrp
+        # postings read, the term tables, the bitset and df written
+        nbytes = (4 * fz.n_lanes + 12 * fz.starts.size
+                  + 4 * bits.numel() + 4 * n_grp)
+        runs["stage1_fuzzy"] = (lambda: _kernels.stage1_fuzzy(*fargs),
+                                fuzzy_plain, None, nbytes,
+                                f"{n_grp} groups of {fz.starts.size} terms, "
+                                f"{fz.n_lanes} postings, df sum "
+                                f"{int(df.sum())}")
+        out["stage1_fuzzy"] = dict(max_abs_err=int(
+            (df - df_p).abs().max()))
+
+    # 2. the pass
+    def pass_plain():
+        return D.stage1_epilogue_plain(
+            scores.clone(), cnt.clone(), live, dense, fidf,
+            dev_index.doc_fac, fz.grp_query if n_grp else None)
+
+    s_p, c_p, m_p, fz_any = pass_plain()
+    n0 = _kernels.launch_counts["stage1_epilogue"]
+    got = []
+    for _ in range(2):
+        s_k, c_k = scores.clone(), cnt.clone()
+        m_k = _kernels.stage1_epilogue(s_k, c_k, live, bits, fidf,
+                                       dev_index.doc_fac, q_off, q_grp)
+        got.append((s_k, c_k, m_k))
+    torch.cuda.synchronize()
+    check(_kernels.launch_counts["stage1_epilogue"] - n0 == 2,
+          "epilogue kernel: not one launch per call")
+    for name, a, b, c in zip(("scores", "cnt", "row max"), got[0],
+                             (s_p, c_p, m_p), got[1]):
+        check(equal(a, b), f"epilogue kernel ({label}): {name} differ from "
+              f"the plain version")
+        check(equal(a, c), f"epilogue kernel ({label}): two runs differ")
+    s_k, c_k, m_k = got[0]
+    del got
+    tmp_s, tmp_c = scores.clone(), cnt.clone()
+    # scores and counts read, scores written (and counts, with fuzzy
+    # groups), the live mask read, the row maxima written; with fuzzy
+    # groups the doc factors, the bitset, fidf and the group tables read
+    nbytes = n_q * n_pad * (16 if n_grp else 12) + 4 * n_pad + 4 * n_q
+    if n_grp:
+        nbytes += 4 * n_pad + 4 * bits.numel() + 4 * n_grp \
+            + 4 * (n_q + 1 + n_grp)
+    runs["stage1_epilogue"] = (
+        lambda: _kernels.stage1_epilogue(tmp_s, tmp_c, live, bits, fidf,
+                                         dev_index.doc_fac, q_off, q_grp),
+        pass_plain, None, nbytes,
+        f"{n_q} x {n_pad}, {n_grp} fuzzy groups, "
+        f"{int((m_p > 0).sum())} rows with a positive row max")
+    out["stage1_epilogue"] = dict(max_abs_err=float(
+        (s_k - s_p).abs().max()))
+
+    # 3. the top-k at every depth
+    keys = D.order_keys(s_p, torch.arange(n_pad, device=dev)[None, :])
+    by_k = {}
+    for k in ks:
+        want = D.stable_top_k_plain(s_p, k)
+        n0 = _kernels.launch_counts["stage1_topk"]
+        k1, k2 = _kernels.stage1_topk(s_k, k), _kernels.stage1_topk(s_k, k)
+        torch.cuda.synchronize()
+        check(_kernels.launch_counts["stage1_topk"] - n0 == 2,
+              "top-k kernel: not one launch per call")
+        check(torch.equal(k1[1], want[1]) and equal(k1[0], want[0]),
+              f"top-k kernel ({label}, k {k}): differs from the plain "
+              f"version")
+        check(torch.equal(k1[1], k2[1]) and equal(k1[0], k2[0]),
+              f"top-k kernel ({label}, k {k}): two runs differ")
+        kth = want[0][:, k - 1:k]
+        ties = int((s_p == kth).sum() - (want[0] == kth).sum())
+        # the row read once, ids and scores written
+        runs[f"stage1_topk {k}"] = (
+            lambda k=k: _kernels.stage1_topk(s_k, k),
+            lambda k=k: D.stable_top_k_plain(s_p, k),
+            lambda k=k: torch.topk(keys, k, dim=1, largest=True,
+                                   sorted=True),
+            4 * n_q * n_pad + 8 * n_q * k,
+            f"k {k}, {n_q} rows of {n_pad}; {ties} ids of the boundary "
+            f"classes left out")
+        by_k[k] = dict(max_abs_err=int((k1[1] - want[1]).abs().max()))
+        del want, k1, k2
+
+    # 4. the LIM rows at the first depth
+    k = ks[0]
+    k2, window = min(D.LIM_K, k), min(D.LIM_WINDOW, n_pad)
+    pad = max(D._LIM_PAD, n_pad)
+    want = D.lim_rows_plain(c_p, live, m_p, fz_any, k, k2, window, 0, pad)
+    lim_args = (c_k, live, m_k, bits, fidf, q_off, q_grp, k, k2, window, 0,
+                pad)
+    n0 = _kernels.launch_counts["stage1_lim"]
+    l1, l2 = _kernels.stage1_lim(*lim_args), _kernels.stage1_lim(*lim_args)
+    torch.cuda.synchronize()
+    check(_kernels.launch_counts["stage1_lim"] - n0 == 2,
+          "LIM kernel: not one launch per call")
+    check(torch.equal(l1, want), f"LIM kernel ({label}): differs from the "
+          f"plain version")
+    check(torch.equal(l1, l2), f"LIM kernel ({label}): two runs differ")
+    members = (want[:, :k2] < n_pad).sum(dim=1)
+    # each row's counts up to its k2-th member (or the window), the live
+    # mask as far as the longest row, the rows written, the thresholds;
+    # with fuzzy groups the presence words of each row's groups that far
+    stop = torch.where(members >= k2, want[:, k2 - 1].long() + 1,
+                       torch.full_like(members, window).long())
+    nbytes = 4 * int(stop.sum()) + 4 * int(stop.max()) + 4 * n_q * k \
+        + 4 * n_q
+    if n_grp:
+        per_q = torch.bincount(torch.from_numpy(fz.grp_query).long(),
+                               minlength=n_q).to(dev)
+        nbytes += 4 * int((per_q * ((stop + 31) // 32)).sum())
+    mask = (c_p * live[None, :] >= m_p[:, None]) & (m_p[:, None] > 0)
+    if fz_any is not None:
+        mask = mask | (fz_any & (live[None, :] > 0))
+    iota = torch.arange(n_pad, device=dev, dtype=torch.int64)
+    lkey = torch.where(mask & (iota < window)[None, :], iota[None, :], pad)
+    del mask
+    runs["stage1_lim"] = (
+        lambda: _kernels.stage1_lim(*lim_args),
+        lambda: D.lim_rows_plain(c_p, live, m_p, fz_any, k, k2, window, 0,
+                                 pad),
+        lambda: torch.topk(lkey, k2, dim=1, largest=False, sorted=True),
+        nbytes, f"k {k}, k2 {k2}, {int(members.sum())} ids in "
+        f"{n_q} rows, {int((members < k2).sum())} rows with fewer than k2")
+    out["stage1_lim"] = dict(max_abs_err=int((l1 - want).abs().max()))
+
+    # times: the kernel on the device (a profiler session each turn), the
+    # plain version and the library call by events, in turns
+    for name, (kernel_fn, plain_fn, lib_fn, nbytes, what) in runs.items():
+        base = name.split()[0]
+        kernel_fn()
+        plain_fn()
+        dev_ms, plain_t, kept = [], [], []
+        for route in ("plain", "cuda", "cuda", "plain"):
+            if route == "plain":
+                plain_t.append(cuda_ms(torch, plain_fn, reps=1, warm=False))
+            else:
+                ms, rec, src = kernel_ms(torch, kernel_fn,
+                                         EPILOGUE_NAMES[base], 5)
+                dev_ms.append(ms)
+                kept.append(rec if src == "profiler" else "events")
+        ms, plain_ms = sum(dev_ms) / 2, sum(plain_t) / 2
+        lib_ms = cuda_ms(torch, lib_fn, reps=3) if lib_fn else None
+        bound = bound_ms(nbytes, 0, F32_PEAK)
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound[0], bound_by=bound[1], bound_bytes=nbytes,
+                   turns=dev_ms, plain_turns=plain_t)
+        if base == "stage1_topk":
+            by_k[int(name.split()[1])].update(row)
+        else:
+            out[base].update(row)
+        lib = f", library {lib_ms:.4f} ms" if lib_fn else ""
+        log(f"[epilogue] {label}: {name} ({what}): bit-equal to the plain "
+            f"version, deterministic; kernel {ms:.4f} ms on the device "
+            f"({dev_ms}; records kept of 5 calls: {kept}), plain "
+            f"{plain_ms:.4f} ms ({plain_t}){lib}; bound "
+            f"{bound[0]:.4f} ms by {bound[1]} ({nbytes} B), "
+            f"{bound[0] / ms:.1%} of the device time")
+    out["stage1_topk"] = dict(by_k[ks[0]], by_k=by_k)
+    return out
+
+
+def epilogue_phase(torch, it, eng, queries, _kernels):
+    """The four epilogue kernels against their plain versions on the bench
+    batch's first Stage-1 group (k 500 and 20,000) and on the tie-heavy
+    corpus (k 500 and 2,000); phase 7 adds the large-vocabulary group."""
+    m = eng.vector_model
+    preps = [p for p in map(m.prepare_stage1, queries[:BATCH])
+             if p is not None]
+    bench = epilogue_check(torch, _kernels, m.device, preps, (500, 20_000),
+                           "bench group")
+    tm = build_engine(it, tie_corpus()).vector_model
+    tpreps = [tm.prepare_stage1(q) for q in
+              ("yorin", "yorinba cezen", "yorinka", "dozen yorin")]
+    ties = epilogue_check(torch, _kernels, tm.device, tpreps, (500, 2000),
+                          "tie-heavy index")
+    return dict(bench=bench, ties=ties)
+
+
 def cross_device_phase(it, runtime, bench, _kernels):
     """The same small corpus served on the CPU and on the card: resident
     batches and single queries, the same under 4 shards on the one
@@ -1428,7 +1831,7 @@ def main_phase(torch, it, eng, queries, _kernels):
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     walls, results = [], []
-    with BlockCount(ck) as blocks:
+    with BlockCount(ck) as blocks, Stage1Count() as epi:
         for b in batches:
             t0 = time.perf_counter()
             results.append(eng.search_batch([it.Query(q, 10) for q in b]))
@@ -1464,6 +1867,7 @@ def main_phase(torch, it, eng, queries, _kernels):
         f"{counts['coverage_lcs']} fake-LCS-kernel and "
         f"{counts['coverage_fusion']} fusion-kernel launches")
     check_per_block(counts, blocks.n, "main path")
+    epi.check(counts, "main")
     flat = [r for b in results for r in b]
     found = check_results(flat, N_DOCS, "search_batch")
     check(found >= len(flat) * 0.9,
@@ -1627,9 +2031,18 @@ def big_vocab_phase(torch, it, bench, _kernels):
         f"({times['plain']}); bound {bound[0]:.4f} ms by {bound[1]} "
         f"({nbytes} B), {bound[0] / ms:.1%} of it")
 
+    # the epilogue kernels on the batch's first Stage-1 group, whose fuzzy
+    # groups the signature matcher found
+    preps = [p for p in map(m.prepare_stage1, queries[:BATCH])
+             if p is not None]
+    check(any(len(g) for p in preps for g in (p[2] or ())),
+          "large vocabulary: the batch has no fuzzy groups")
+    ek = epilogue_check(torch, _kernels, m.device, preps, (500,),
+                        "large-vocabulary group")
+
     _kernels.reset_launch_counts()
     walls, results = [], []
-    with BlockCount(ck) as blocks:
+    with BlockCount(ck) as blocks, Stage1Count() as epi:
         for i in (0, BATCH):
             t0 = time.perf_counter()
             results += eng.search_batch([it.Query(q, 10)
@@ -1641,6 +2054,9 @@ def big_vocab_phase(torch, it, bench, _kernels):
         f"{[round(w * 1e3, 1) for w in walls]} ms wall; {blocks.n} coverage "
         f"blocks; kernel launches {counts}")
     check_per_block(counts, blocks.n, "large vocabulary")
+    epi.check(counts, "large vocabulary")
+    check(counts["stage1_fuzzy"] > 0, "large vocabulary: no Stage-1 group "
+          "with fuzzy groups")
     check(counts["fuzzy_match"] > 0, "large vocabulary: the match kernel "
           "never launched")
     check(counts["stage1_scatter_lanes"] > 0, "large vocabulary: the lane "
@@ -1655,7 +2071,7 @@ def big_vocab_phase(torch, it, bench, _kernels):
         f"doc 0 first")
     return eng, titles, vocab, dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound[0],
-                                    bound_by=bound[1]), counts
+                                    bound_by=bound[1]), counts, ek
 
 
 def fresh_words(bench, vocab, n: int, seed: int):
@@ -1858,7 +2274,7 @@ def segments_phase(torch, it, eng, queries, resident, _kernels, root):
         _kernels.reset_launch_counts()
         n0 = len(streamed)
         t0 = time.perf_counter()
-        with BlockCount(ck) as blocks:
+        with BlockCount(ck) as blocks, Stage1Count() as epi:
             res = eng.search_batch([it.Query(q, 10) for q in texts])
             torch.cuda.synchronize()
             counts = dict(_kernels.launch_counts)
@@ -1866,6 +2282,7 @@ def segments_phase(torch, it, eng, queries, resident, _kernels, root):
         check(len(streamed) > n0 and counts["stage1_scatter_lanes"] > 0,
               "segments: the batch did not stream through the lane kernel")
         check_per_block(counts, blocks.n, "segments")
+        epi.check(counts, "segments")
         found = check_results(res, N_DOCS, "segment batch")
         same = sum([r.document_id for r in a.records]
                    == [r.document_id for r in b.records]
@@ -1986,7 +2403,7 @@ def serve_pool_batches(torch, it, eng, queries, _kernels):
     try:
         torch.cuda.synchronize()
         _kernels.reset_launch_counts()
-        with BlockCount(ck) as blocks:
+        with BlockCount(ck) as blocks, Stage1Count() as epi:
             for i in (0, BATCH):
                 t0 = time.perf_counter()
                 results.append(eng.search_batch(
@@ -1997,6 +2414,8 @@ def serve_pool_batches(torch, it, eng, queries, _kernels):
     finally:
         del m._tier_gate, dev_index.pool_score_dispatch, m.POOL_DEVICE
     check_per_block(counts, blocks.n, "pool scoring")
+    epi.check(counts, "pool scoring")
+    check(epi.pools > 0, "pool scoring: no pool dispatch")
     jobs = [j for js, _ in captured for j in js]
     log(f"[pool] two batches with POOL_DEVICE=\"1\": {sum(gate)} tier "
         f"jobs, {len(jobs)} pools scored on the card in {len(captured)} "
@@ -2121,6 +2540,7 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
         sdi = m.sharded
         check(len(sdi.mesh) == n_sh and len(sdi._replicas) == 1,
               "sharded: wrong mesh")
+        epi = Stage1Count().__enter__()
         groups = []
         sdi._search_group = (lambda *a, _f=sdi._search_group:
                              groups.append(1) or _f(*a))
@@ -2136,9 +2556,12 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             counts = dict(_kernels.launch_counts)
+        epi.__exit__()
+        del sdi._search_group
         n_groups = len(groups)
         check_per_block(counts, blocks.n, f"sharded ({n_sh} shards)",
                         lcs=False)
+        epi.check(counts, f"sharded ({n_sh} shards)")
         swalls, single = [], []
         for q in singles:
             t0 = time.perf_counter()
@@ -2195,6 +2618,27 @@ def loaded_from(root: str):
         libs = {line.split()[-1] for line in maps if ".so" in line}
     libs.add(os.path.abspath(native._SO))
     return bad + sorted(f for f in libs if f.startswith(root))
+
+
+def epilogue_entry(name, counts, paths, per_batch, ek2) -> dict:
+    """The ``kernels`` line's entry of an epilogue kernel: its main-path
+    launches, and the numbers of the first input of phase 2 that ran it
+    (the bench group; the large-vocabulary group where the bench group has
+    no fuzzy groups), with every input's under "by_input"."""
+    label, row = next((lb, runs[name]) for lb, runs in ek2.items()
+                      if name in runs)
+    return {"name": name, "route": "cuda",
+            "source": f"infidex_tpu_torch/csrc/{name}.cu",
+            "replaces": EPILOGUE_REPLACES[name],
+            "launches": counts[name], "launches_per_batch": counts[name] / 4,
+            "launches_by_path": paths(name),
+            "launches_per_batch_by_path": per_batch(name),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "input": label,
+            "by_input": {lb: runs[name] for lb, runs in ek2.items()
+                         if name in runs}}
 
 
 T_START = time.perf_counter()
@@ -2277,6 +2721,8 @@ def main(argv=None) -> int:
                 _kernels)
     fk2 = timed("2 fusion kernel", fusion_phase, torch, bench_spy, long_spy,
                 _kernels)
+    ek2 = timed("2 stage1 epilogue kernels", epilogue_phase, torch, it, eng,
+                queries, _kernels)
     del bench_spy, long_spy
     timed("3 cross-device", cross_device_phase, it, runtime, bench, _kernels)
     counts, resident = timed("4 main", main_phase, torch, it, eng, queries,
@@ -2288,7 +2734,7 @@ def main(argv=None) -> int:
                             queries, resident, _kernels)
     shard_counts = timed("12 sharded", sharded_phase, torch, it, eng,
                          queries, resident, _kernels)
-    big, big_titles, vocab, fk, vocab_counts = timed(
+    big, big_titles, vocab, fk, vocab_counts, ek2["large vocabulary"] = timed(
         "7 large vocabulary", big_vocab_phase, torch, it, bench, _kernels)
     timed("8 writes", writes_phase, torch, it, bench, big, big_titles, vocab)
     del big
@@ -2414,7 +2860,9 @@ def main(argv=None) -> int:
         "bound_by": fk2[name][main_cascade]["bound_by"], "library_ms": None,
         "by_block": fk2[name]}
         for name, line in (("coverage_lcs", 1038),
-                           ("coverage_fusion", 1079))]}), flush=True)
+                           ("coverage_fusion", 1079))] + [
+        epilogue_entry(name, counts, paths, per_batch, ek2)
+        for name in EPILOGUE_REPLACES]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,27 +12,33 @@ chunk table from each query term's CSR range, the lane kernel
 dense [n_q, n_pad] score matrix and counts distinct scoring terms per
 doc, the fuzzy virtual-term block adds on-device expanded typo groups,
 and the epilogue takes the exact (score desc, id asc) top-k plus the
-low-id-matcher (LIM) rows of each query's top quality class.
+low-id-matcher (LIM) rows of each query's top quality class. On CUDA the
+epilogue is four hand-written kernels (``csrc/stage1_fuzzy.cu``: the
+groups' presence bitset and df; ``csrc/stage1_epilogue.cu``: one pass
+adding the groups, applying the live mask and taking the row max of the
+counts; ``csrc/stage1_topk.cu``; ``csrc/stage1_lim.cu``), reached through
+the dispatchers below; CPU tensors take their plain versions.
 
 Every f32 operation is rounded on its own (no FMA contraction, no
 atomics, no TF32), so CPU and CUDA give the same bits: the lane scatter
 keeps the reference's serial per-cell addition order (see
 ``ops/stage1_lanes.py``; given the same per-posting factors the scores
 equal the reference's bit for bit), the fuzzy scores accumulate per group
-in group order, and the top-k packs score and id into one unique int64
-key, so tie order never depends on the device. Ids come back as integers
+in group order, and the top-k orders score and id as one unique key, so
+tie order never depends on the device. Ids come back as integers
 (no f32 packing, no 2^24-doc cap on the id path).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import runtime
+from ..ops import _kernels
 from ..ops import stage1_lanes as lanes
 from ..ops.coverage_kernel import _upload
 from ..ops.pool_score import pool_score
@@ -85,7 +91,7 @@ def order_keys(scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         (1 << 32) - 1 - ids.to(torch.int64))
 
 
-def stable_top_k(scores: torch.Tensor, k: int):
+def stable_top_k_plain(scores: torch.Tensor, k: int):
     """Top-k of each row by (score desc, doc id asc), exactly.
 
     Each (score, id) pair becomes one unique int64 key (``order_keys``).
@@ -107,31 +113,120 @@ def stable_top_k(scores: torch.Tensor, k: int):
     return out_scores, ids
 
 
-def _coverage_class(cnt: torch.Tensor, live_mask: torch.Tensor):
-    """[n_q, N] bool: docs whose distinct-scoring-term count reaches the
-    row maximum (the Stage-1 analogue of fusion's top quality class)."""
-    cnt = cnt * live_mask[None, :]
-    cmax = cnt.max(dim=1, keepdim=True).values
-    return (cnt >= cmax) & (cmax > 0.0)
+def _use_plain(t: torch.Tensor) -> bool:
+    """The epilogue dispatchers' route: plain PyTorch for CPU tensors,
+    the kernels for every other device (CUDA; elsewhere they raise)."""
+    return t.device.type == "cpu"
 
 
-def _lim_rows(m: torch.Tensor, k: int) -> torch.Tensor:
+def stable_top_k(scores: torch.Tensor, k: int):
+    """Top-k of each row (or of a 1-D row) by (score desc, doc id asc),
+    exactly: (scores f32, ids int32), [n_rows, k]. CPU tensors take the
+    plain version; CUDA tensors ``csrc/stage1_topk.cu``, which gives the
+    same ids and score bits without a key matrix."""
+    if _use_plain(scores):
+        return stable_top_k_plain(scores, k)
+    if scores.dim() == 1:
+        s, i = _kernels.stage1_topk(scores[None, :].contiguous(), k)
+        return s[0], i[0]
+    return _kernels.stage1_topk(scores.contiguous(), k)
+
+
+def _lim_rows(m: torch.Tensor, k: int, k2: Optional[int] = None,
+              window: Optional[int] = None, id_offset: int = 0,
+              pad: Optional[int] = None) -> torch.Tensor:
     """[n_q, k] int32: the lowest True positions of mask ``m`` within the
-    first LIM_WINDOW ids, ascending, at most LIM_K of them, padded."""
+    first ``window`` ids (LIM_WINDOW), ascending, at most ``k2``
+    (min(LIM_K, k)) of them, each plus ``id_offset``, padded with ``pad``
+    (max(2^24, n_pad))."""
     n_q, n_pad = m.shape
-    w = min(LIM_WINDOW, n_pad)
-    k2 = min(LIM_K, k)
-    pad = max(_LIM_PAD, n_pad)
-    iota = torch.arange(w, device=m.device, dtype=torch.int64)
-    key = torch.where(m[:, :w], iota[None, :], pad)
+    w = min(LIM_WINDOW if window is None else window, n_pad)
+    k2 = min(LIM_K, k) if k2 is None else k2
+    pad = max(_LIM_PAD, n_pad) if pad is None else pad
+    iota = torch.arange(n_pad, device=m.device, dtype=torch.int64)
+    key = torch.where(m & (iota < w)[None, :], iota[None, :] + id_offset,
+                      pad)
     out = torch.full((n_q, k), pad, dtype=torch.int64, device=m.device)
     out[:, :k2] = torch.topk(key, k2, dim=1, largest=False,
                              sorted=True).values
     return out.to(torch.int32)
 
 
-def _fuzzy_presence(postings_docs, fz_starts, fz_lens, fz_group, n_grp: int,
-                    doc_lo: int, doc_hi: int) -> torch.Tensor:
+def lim_rows_plain(cnt, live, thresh, fz_any, k_out: int, k2: int,
+                   window: int, id_offset: int, pad: int) -> torch.Tensor:
+    """Plain version of ``lim_rows``: the class mask (the docs whose
+    distinct-scoring-term count reaches ``thresh``, the Stage-1 analogue of
+    fusion's top quality class, or'ed with the fuzzy-covered live docs),
+    then ``_lim_rows``."""
+    cnt = cnt * live[None, :]
+    m = (cnt >= thresh[:, None]) & (thresh[:, None] > 0.0)
+    if fz_any is not None:
+        m = m | (fz_any & (live[None, :] > 0.0))
+    return _lim_rows(m, k_out, k2, window, id_offset, pad)
+
+
+def lim_rows(cnt, live, thresh, k_out: int, *, k2: int, window: int,
+             pad: int, id_offset: int = 0, fz_any=None, presence=None,
+             fidf=None, fz=None) -> torch.Tensor:
+    """[n_q, k_out] int32 LIM rows: per query the ``k2`` lowest ids below
+    ``window`` of its top quality class (``cnt * live >= thresh`` with
+    ``thresh > 0``, or covered by one of its scoring fuzzy groups where
+    live), ascending, plus ``id_offset``, padded with ``pad``. The fuzzy
+    cover comes as the route keeps it: ``fz_any`` (bool [n_q, width]) on
+    the CPU; ``presence`` (the bitset), ``fidf`` and ``fz`` (the group
+    tables) on CUDA, where ``csrc/stage1_lim.cu`` runs."""
+    if _use_plain(cnt):
+        return lim_rows_plain(cnt, live, thresh, fz_any, k_out, k2, window,
+                              id_offset, pad)
+    return _kernels.stage1_lim(
+        cnt, live, thresh, presence, fidf,
+        fz.d_qoff if fz is not None else None,
+        fz.d_qgrp if fz is not None else None, k_out, k2, window, id_offset,
+        pad)
+
+
+class FuzzyGroups(NamedTuple):
+    """The fuzzy groups of one Stage-1 group (``prepare_batch_arrays``):
+    the padded host tables, and the same on the device as views of one
+    int32 buffer (one upload) for the kernels, with each query's groups
+    in rank order (``lanes.owner_ranks``)."""
+
+    starts: np.ndarray          # int32 [T] first posting of each term
+    lens: np.ndarray            # int32 [T]
+    group: np.ndarray           # int32 [T] owning group
+    grp_query: np.ndarray       # int32 [n_grp] owning query (pads: 0)
+    n_lanes: int                # postings of all terms
+    d_starts: torch.Tensor      # int32 [T]
+    d_group: torch.Tensor       # int32 [T]
+    d_cum: torch.Tensor         # int32 [T + 1] first lane of each term
+    d_qoff: torch.Tensor        # int32 [n_q + 1]
+    d_qgrp: torch.Tensor        # int32 [n_grp] groups by query, rank order
+
+
+def fuzzy_groups(fz_starts, fz_lens, fz_group, grp_query, n_q: int,
+                 dev) -> FuzzyGroups:
+    """``FuzzyGroups`` of ``prepare_batch_arrays``' fuzzy tables for
+    ``n_q`` queries, its device buffer on ``dev``."""
+    starts = np.asarray(fz_starts, np.int32)
+    lens = np.asarray(fz_lens, np.int32)
+    group = np.asarray(fz_group, np.int32)
+    grp_query = np.asarray(grp_query, np.int32)
+    n_t = starts.size
+    cum = np.zeros(n_t + 1, np.int64)
+    np.cumsum(lens, out=cum[1:])
+    q_off = np.zeros(n_q + 1, np.int64)
+    np.cumsum(np.bincount(grp_query, minlength=n_q), out=q_off[1:])
+    q_grp = np.argsort(grp_query, kind="stable")
+    buf = _upload(np.concatenate([starts, group, cum, q_off, q_grp])
+                  .astype(np.int32), dev)
+    ends = np.cumsum([n_t, n_t, n_t + 1, n_q + 1, q_grp.size])
+    views = torch.tensor_split(buf, ends[:-1].tolist())
+    return FuzzyGroups(starts, lens, group, grp_query, int(cum[-1]), *views)
+
+
+def fuzzy_presence_plain(postings_docs, fz_starts, fz_lens, fz_group,
+                         n_grp: int, doc_lo: int,
+                         doc_hi: int) -> torch.Tensor:
     """[n_grp, doc_hi - doc_lo] f32: 1 where a doc of the window
     ``[doc_lo, doc_hi)`` carries a posting of one of the group's matched
     terms (the union of the group's posting docs). ``fz_*`` are host
@@ -156,25 +251,58 @@ def _fuzzy_presence(postings_docs, fz_starts, fz_lens, fz_group, n_grp: int,
     return presence[:n_grp * width].view(n_grp, width)
 
 
-def _fuzzy_apply(scores, cnt, presence, df, doc_lengths, grp_query,
-                 total_docs, stop_limit, avgdl, n_q: int):
-    """The fuzzy groups' scores and counts over the docs of ``presence``
-    (``doc_lengths`` the same docs'), given each group's df over the
-    WHOLE index. Returns (scores, cnt, fz_any)."""
-    dev = scores.device
-    f32 = torch.float32
-    n_pad = doc_lengths.shape[0]
+def fuzzy_presence(postings_docs, fz: FuzzyGroups, n_grp: int, doc_lo: int,
+                   doc_hi: int):
+    """(presence, df) of the fuzzy groups over the doc window
+    ``[doc_lo, doc_hi)``: df (int32 [n_grp], exact) counts each group's
+    distinct posting docs in the window, deleted ones included (as the
+    host union over raw postings does). The presence is what the route
+    keeps: a dense f32 [n_grp, width] matrix on the CPU
+    (``fuzzy_presence_plain``), a bitset int32 [n_grp, ceil(width / 32)]
+    from ``csrc/stage1_fuzzy.cu`` on CUDA."""
+    if _use_plain(postings_docs):
+        presence = fuzzy_presence_plain(postings_docs, fz.starts, fz.lens,
+                                        fz.group, n_grp, doc_lo, doc_hi)
+        # exact in f32 below 2^24
+        return presence, presence.sum(dim=1).to(torch.int32)
+    return _kernels.stage1_fuzzy(postings_docs, fz.d_starts, fz.d_group,
+                                 fz.d_cum, fz.n_lanes, n_grp, doc_lo, doc_hi)
+
+
+def fuzzy_idf(df, total_docs, stop_limit):
+    """Each fuzzy group's BM25 idf from its df over the WHOLE index,
+    gated to 0 < df <= stop_limit (f32 [n_grp])."""
+    df = df.to(torch.float32)
     ratio = (total_docs - df + 0.5) / (df + 0.5)
     # f32 log1p differs in the last ulp between XLA, PyTorch's CPU
     # kernels and CUDA's log1pf; the port takes it in f64 and rounds once,
     # so every device gives the same idf (the nearest f32 to log1p).
-    fidf = torch.where((df > 0) & (df <= stop_limit) & (ratio > 0),
+    return torch.where((df > 0) & (df <= stop_limit) & (ratio > 0),
                        torch.log1p(torch.clamp_min(ratio, 0.0).double())
-                       .to(f32), 0.0)
+                       .to(torch.float32), 0.0)
+
+
+def fuzzy_doc_factor(doc_lengths, avgdl):
+    """The fuzzy groups' per-doc BM25+ factor at tf = 1 (``avgdl`` a
+    one-element tensor; the divisors stay tensors, so CPU and CUDA round
+    alike)."""
     dl_all = torch.where(doc_lengths <= 0.0, 1.0, doc_lengths)
-    fnorm = K1 * (1.0 - B + B * (dl_all / avgdl))
-    doc_fac = torch.tensor(K1 + 1.0, dtype=f32, device=dev) / (
-        1.0 + fnorm) + DELTA
+    fnorm = K1 * (1.0 - B + B * (dl_all / torch.clamp_min(avgdl, 1e-9)))
+    return torch.tensor(K1 + 1.0, dtype=torch.float32,
+                        device=doc_lengths.device) / (1.0 + fnorm) + DELTA
+
+
+def _fuzzy_apply(scores, cnt, presence, fidf, doc_fac, grp_query,
+                 n_q: int):
+    """The fuzzy groups' scores and counts over the docs of ``presence``
+    (``doc_fac`` the same docs'), given each group's idf. Groups add in
+    group order, one pass per group rank (a group's position among its
+    query's groups), so each cell sums in the same order as the
+    reference's [n_q, n_grp] x [n_grp, N] product, with no atomics and no
+    TF32. Returns (scores, cnt, fz_any)."""
+    dev = scores.device
+    f32 = torch.float32
+    n_pad = doc_fac.shape[0]
     gq = torch.from_numpy(np.asarray(grp_query, np.int64)).to(dev)
     scoring = (fidf > 0.0).to(f32)
     fz_score = torch.zeros((n_q, n_pad), dtype=f32, device=dev)
@@ -188,32 +316,41 @@ def _fuzzy_apply(scores, cnt, presence, df, doc_lengths, grp_query,
     return scores + fz_score, cnt + fz_cnt, fz_cnt > 0.0
 
 
-def _fuzzy_block(scores, cnt, postings_docs, doc_lengths, fz_starts,
-                 fz_lens, fz_group, grp_query, total_docs, stop_limit,
-                 avgdl, n_q: int):
-    """On-device fuzzy virtual-term scoring.
+def stage1_epilogue_plain(scores, cnt, live, presence, fidf, doc_fac,
+                          grp_query):
+    """Plain version of ``stage1_epilogue``: the fuzzy block's scores and
+    counts (``_fuzzy_apply``, skipped without fuzzy groups), the live
+    mask, and the row max of the live counts. Returns (scores, cnt,
+    rowmax, fz_any)."""
+    fz_any = None
+    if presence is not None:
+        scores, cnt, fz_any = _fuzzy_apply(scores, cnt, presence, fidf,
+                                           doc_fac, grp_query,
+                                           scores.shape[0])
+    scores = scores * live[None, :]
+    rowmax = (cnt * live[None, :]).max(dim=1).values
+    return scores, cnt, rowmax, fz_any
 
-    Each fuzzy query token is a group of LD1-matched vocab terms
-    (VectorModel.ExpandMissingTerm, :643-743); its terms' postings expand
-    into a [n_grp, N] presence matrix (deduping the doc union), df is the
-    row sum, idf the BM25 idf of df gated to 0 < df <= stop_limit, and
-    every doc of the group gains ``idf * doc_fac`` (tf = 1) and one
-    distinct-term count. ``fz_*`` and ``grp_query`` are host arrays.
-    Groups add in group order, one pass per group rank (a group's position
-    among its query's groups), so each cell sums in the same order as the
-    reference's [n_q, n_grp] x [n_grp, N] product, with no atomics and no
-    TF32. The three steps (``_fuzzy_presence``, the df row sum,
-    ``_fuzzy_apply``) run apart on a sharded index, whose df is the sum of
-    the shards' row sums (``parallel/sharding.py``). Returns (scores, cnt,
-    fz_any)."""
-    n_pad = doc_lengths.shape[0]
-    presence = _fuzzy_presence(postings_docs, fz_starts, fz_lens, fz_group,
-                               int(grp_query.size), 0, n_pad)
-    # virtual-term df = distinct posting docs (deleted included, like the
-    # host union over raw postings); exact in f32 below 2^24
-    return _fuzzy_apply(scores, cnt, presence, presence.sum(dim=1),
-                        doc_lengths, grp_query, total_docs, stop_limit,
-                        avgdl, n_q)
+
+def stage1_epilogue(scores, cnt, live, fz: Optional[FuzzyGroups], presence,
+                    fidf, doc_fac):
+    """The pass over a Stage-1 group's [n_q, width] score and count
+    matrices: the fuzzy groups' ``idf * doc_fac`` and counts added in
+    group-rank order where their presence is set (``fz`` None: no fuzzy
+    groups), the scores times ``live``, and each row's max of
+    ``cnt * live``. Returns (scores, cnt, rowmax f32 [n_q], fz_any): CPU
+    tensors take the plain version (``fz_any`` the fuzzy-covered docs,
+    bool [n_q, width]); CUDA tensors ``csrc/stage1_epilogue.cu``, in place
+    (``fz_any`` None: ``lim_rows`` reads the bitset)."""
+    if _use_plain(scores):
+        return stage1_epilogue_plain(
+            scores, cnt, live, presence, fidf, doc_fac,
+            fz.grp_query if fz is not None else None)
+    rowmax = _kernels.stage1_epilogue(
+        scores, cnt, live, presence, fidf, doc_fac,
+        fz.d_qoff if fz is not None else None,
+        fz.d_qgrp if fz is not None else None)
+    return scores, cnt, rowmax, None
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -425,6 +562,8 @@ class DeviceIndex:
         self.cfac = lanes.posting_cfac(
             self.postings_docs, _upload(self._weights_host, dev),
             self.doc_lengths, self.avgdl)
+        # the fuzzy groups' per-doc factor, once per index image
+        self.doc_fac = fuzzy_doc_factor(self.doc_lengths, self.avgdl)
         # filter-mask ∧ live-mask device buffers, keyed by mask identity
         self._mask_cache: Dict[int, tuple] = {}
 
@@ -528,26 +667,30 @@ class DeviceIndex:
         scores = scores.view(n_q, n_pad)
         cnt = cnt.view(n_q, n_pad)
 
-        fz_any = None
+        # the epilogue: fuzzy groups, live mask, top-k, LIM rows (four
+        # kernels on CUDA; see stage1_epilogue, stable_top_k, lim_rows)
+        fz = presence = fidf = None
         if n_grp > 0:
             td = torch.tensor(float(np.float32(
                 total_docs if total_docs is not None else self.num_docs)),
                 dtype=f32, device=dev)
             sl = torch.tensor(float(np.float32(stop_term_limit)), dtype=f32,
                               device=dev)
-            scores, cnt, fz_any = _fuzzy_block(
-                scores, cnt, postings_docs, self.doc_lengths,
-                fz_starts, fz_lens, fz_group, grp_query, td, sl,
-                torch.clamp_min(self.avgdl, 1e-9), n_q)
+            fz = fuzzy_groups(fz_starts, fz_lens, fz_group, grp_query, n_q,
+                              dev)
+            presence, df = fuzzy_presence(postings_docs, fz, n_grp, 0, n_pad)
+            fidf = fuzzy_idf(df, td, sl)
 
         live = live_override if live_override is not None else self.live_mask
-        scores = scores * live[None, :]
+        scores, cnt, rowmax, fz_any = stage1_epilogue(
+            scores, cnt, live, fz, presence, fidf, self.doc_fac)
         k = min(int(top_k), n_pad)
         top_scores, top_ids = stable_top_k(scores, k)
-        m = _coverage_class(cnt, live)
-        if fz_any is not None:
-            m = m | (fz_any & (live[None, :] > 0.0))
-        return dict(out=(top_scores, top_ids, _lim_rows(m, k)), n_q=n_q)
+        lim = lim_rows(cnt, live, rowmax, k, k2=min(LIM_K, k),
+                       window=min(LIM_WINDOW, n_pad),
+                       pad=max(_LIM_PAD, n_pad), fz_any=fz_any,
+                       presence=presence, fidf=fidf, fz=fz)
+        return dict(out=(top_scores, top_ids, lim), n_q=n_q)
 
     @staticmethod
     def _collect_group(h: dict) -> list:

@@ -322,7 +322,8 @@ class MmapStage1:
 
         for grp in (fuzzy_groups or ()):
             # virtual term: union of matched terms' docs, tf = 1.0
-            # (VectorModel.ExpandMissingTerm; device twin: _fuzzy_block)
+            # (VectorModel.ExpandMissingTerm; device twin: device.py
+            # fuzzy_presence + stage1_epilogue)
             chunks = [docs for tid in np.asarray(grp, np.int64)
                       for docs, _ in self._term_parts(int(tid))]
             if not chunks:

@@ -40,7 +40,8 @@ FUZZY_TILE = 512
 launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
                  "pool_score": 0, "coverage_gather": 0, "coverage_pairs": 0,
                  "coverage_cascade": 0, "coverage_lcs": 0,
-                 "coverage_fusion": 0}
+                 "coverage_fusion": 0, "stage1_fuzzy": 0, "stage1_epilogue": 0,
+                 "stage1_topk": 0, "stage1_lim": 0}
 
 #: char widths ``csrc/coverage_pairs.cu`` is compiled for (the coverage
 #: program's L_CAP_SMALL and L_MAX)
@@ -99,7 +100,7 @@ def bind(lib):
     ``lib`` exports: the library built from ``csrc/``, or one built from
     some of its files (an earlier design with the same C interface).
     Returns ``lib``."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in (
             ("stage1_scatter_lanes", [p, p, p, p, p, p, p, i, p, p, i, i, p,
                                       p, p]),
@@ -112,7 +113,12 @@ def bind(lib):
              + [p] * 18),
             ("coverage_cascade", [p] * 10 + [i] * 4 + [p] * 9),
             ("coverage_lcs", [p] * 10 + [i] * 3 + [p, p]),
-            ("coverage_fusion", [p] * 29 + [i] * 5 + [p, i, p, p])):
+            ("coverage_fusion", [p] * 29 + [i] * 5 + [p, i, p, p]),
+            ("stage1_fuzzy", [p, p, p, i, ll, p, i, i, p, ll, i, p, p]),
+            ("stage1_epilogue", [p, p, ll, i, p, p, ll, p, p, p, p, i, p, p]),
+            ("stage1_topk", [p, ll, i, i, i, p, ll, p, p, p]),
+            ("stage1_lim", [p, ll, i, p, p, p, ll, p, p, p, i, ll, i, i, i, i,
+                            p, p])):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i
@@ -688,4 +694,211 @@ def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
         raise RuntimeError("coverage_fusion launch failed: "
                            + _lib.stage1_error_string(rc).decode())
     launch_counts["coverage_fusion"] += 1
+    return out
+
+
+# ---- the Stage-1 epilogue (csrc/stage1_*.cu) ----
+#
+# Each wrapper takes ``lib``: by default the port's library, on CUDA
+# tensors only (a launch is counted); a library of the same C interface
+# given by the caller (the g++ build of the cell headers in the CPU tests)
+# runs on the tensors' own device, CPU included, and is not counted.
+
+#: S sizes the top-k kernel sorts in shared memory (kSharedKeys in
+#: ``csrc/stage1_topk_cell.cuh``); a larger k takes a global scratch row
+TOPK_SHARED_KEYS = 16384
+
+
+def _stage1_run(name: str, lib, dev, call) -> None:
+    """``call(lib, stream)`` on ``lib`` (default: the port's library, which
+    needs CUDA tensors); raises on a non-zero code, counts the port's
+    launches."""
+    own = lib is None
+    if own:
+        if dev.type != "cuda":
+            raise ValueError(f"{name}: CUDA tensors required")
+        build()
+        lib = _lib
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            rc = call(lib, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        rc = call(lib, None)
+    if rc != 0:
+        why = (_lib.stage1_error_string(rc).decode() if _lib is not None
+               else f"code {rc}")
+        raise RuntimeError(f"{name} launch failed: {why}")
+    if own:
+        launch_counts[name] += 1
+
+
+def _fuzzy_cover(bits, fidf, q_off, q_grp, n_q: int, dev):
+    """Checks of the fuzzy groups' tables that the epilogue and LIM
+    kernels read (``bits`` None: no fuzzy groups); returns (has_fz, words,
+    pointers of bits, fidf, q_off, q_grp)."""
+    if bits is None:
+        return 0, 0, (None, None, None, None)
+    i32 = torch.int32
+    if bits.dim() != 2:
+        raise ValueError("bits: must be a [n_grp, words] tensor")
+    n_grp, words = bits.shape
+    _check_nd("bits", bits, i32, (n_grp, words), dev)
+    _check_nd("fidf", fidf, torch.float32, (n_grp,), dev)
+    _check_nd("q_off", q_off, i32, (n_q + 1,), dev)
+    _check("q_grp", q_grp, i32, dev)
+    return 1, words, (bits.data_ptr(), fidf.data_ptr(), q_off.data_ptr(),
+                      q_grp.data_ptr())
+
+
+def stage1_fuzzy(postings_docs, starts, group, cum, n_lanes: int,
+                 n_grp: int, doc_lo: int, doc_hi: int, *, lib=None):
+    """``csrc/stage1_fuzzy.cu``: the presence of ``n_grp`` fuzzy groups
+    over the doc window ``[doc_lo, doc_hi)`` (see ``index/device.py
+    fuzzy_presence``). ``starts``/``group`` int32 [T] (each group id
+    below n_grp), ``cum`` int32 [T + 1] the first lane of each term
+    (``cum[T] = n_lanes``), ``postings_docs`` int32, all contiguous, every
+    posting read inside it. Returns (bits int32 [n_grp, ceil(width / 32)],
+    bit d of a row for doc doc_lo + d; df int32 [n_grp], each row's
+    popcount). One call launches the mark and count passes and counts one
+    launch."""
+    dev = postings_docs.device
+    i32 = torch.int32
+    for name, t in (("postings_docs", postings_docs), ("starts", starts),
+                    ("group", group), ("cum", cum)):
+        _check(name, t, i32, dev)
+    n_terms = starts.numel()
+    if group.numel() != n_terms or cum.numel() != n_terms + 1:
+        raise ValueError("stage1_fuzzy: mismatched term tables")
+    if not 0 <= doc_lo <= doc_hi < (1 << 31) or n_grp < 0:
+        raise ValueError(f"stage1_fuzzy: bad window [{doc_lo}, {doc_hi}) "
+                         f"or {n_grp} groups")
+    words = -(-(doc_hi - doc_lo) // 32)
+    bits = torch.zeros((n_grp, words), dtype=i32, device=dev)
+    df = torch.empty(n_grp, dtype=i32, device=dev)
+    if n_grp == 0:
+        return bits, df
+    _stage1_run("stage1_fuzzy", lib, dev, lambda lb, stream: lb.stage1_fuzzy(
+        starts.data_ptr(), group.data_ptr(), cum.data_ptr(), n_terms,
+        int(n_lanes), postings_docs.data_ptr(), int(doc_lo), int(doc_hi),
+        bits.data_ptr(), words, n_grp, df.data_ptr(), stream))
+    return bits, df
+
+
+def stage1_epilogue(scores, cnt, live, bits, fidf, doc_fac, q_off, q_grp,
+                    *, lib=None):
+    """``csrc/stage1_epilogue.cu``, in place on ``scores`` and ``cnt``
+    (f32 [n_q, width], contiguous; see ``index/device.py
+    stage1_epilogue``): with fuzzy groups (``bits`` int32 [n_grp, words]
+    from ``stage1_fuzzy``, ``fidf`` f32 [n_grp], ``doc_fac`` f32 [width],
+    ``q_off`` int32 [n_q + 1] and ``q_grp`` int32, each query's groups in
+    rank order) adds the groups' scores and counts, then multiplies the
+    scores by ``live`` (f32 [width]). ``cnt`` and ``live`` must not be
+    negative (counts and 0/1 masks). Returns the row max of cnt * live,
+    f32 [n_q]. One launch."""
+    dev = scores.device
+    f32 = torch.float32
+    if scores.dim() != 2:
+        raise ValueError("scores: must be a [n_q, width] tensor")
+    n_q, width = scores.shape
+    _check_nd("scores", scores, f32, (n_q, width), dev)
+    _check_nd("cnt", cnt, f32, (n_q, width), dev)
+    _check_nd("live", live, f32, (width,), dev)
+    has_fz, words, ptrs = _fuzzy_cover(bits, fidf, q_off, q_grp, n_q, dev)
+    if has_fz:
+        _check_nd("doc_fac", doc_fac, f32, (width,), dev)
+        if words * 32 < width:
+            raise ValueError("stage1_epilogue: presence rows narrower than "
+                             "the score rows")
+    if n_q > 65535:
+        raise ValueError(f"stage1_epilogue: {n_q} rows, at most 65535")
+    rowmax = torch.zeros(n_q, dtype=torch.int32, device=dev)
+    if n_q and width:
+        _stage1_run("stage1_epilogue", lib, dev,
+                    lambda lb, stream: lb.stage1_epilogue(
+                        scores.data_ptr(), cnt.data_ptr(), width, n_q,
+                        live.data_ptr(), ptrs[0], words, ptrs[1],
+                        doc_fac.data_ptr() if has_fz else None, ptrs[2],
+                        ptrs[3], has_fz, rowmax.data_ptr(), stream))
+    return rowmax.view(f32)
+
+
+def topk_scratch_cols(k: int, shared_keys: int = TOPK_SHARED_KEYS) -> int:
+    """Columns of the top-k kernel's global scratch for depth ``k``: the
+    power of two at or above k where that exceeds ``shared_keys``, else 0
+    (no scratch)."""
+    p = 1
+    while p < k:
+        p *= 2
+    return p if p > shared_keys else 0
+
+
+def stage1_topk(scores, k: int, *, shared_keys: int = TOPK_SHARED_KEYS,
+                lib=None):
+    """``csrc/stage1_topk.cu``: the exact top ``k`` of each row of
+    ``scores`` (f32 [n_rows, width], contiguous) by (score desc, id asc),
+    in that order, for 1 <= k <= width (see ``index/device.py
+    stable_top_k``). Returns (scores f32 [n_rows, k], the rows' own
+    values; ids int32 [n_rows, k]). The kernel sorts up to
+    ``shared_keys`` (a power of two up to ``TOPK_SHARED_KEYS``; the tests
+    lower it to reach the other paths at small widths) in shared memory;
+    its scratch rows for more come from the torch allocator. One
+    launch."""
+    dev = scores.device
+    if scores.dim() != 2:
+        raise ValueError("scores: must be a [n_rows, width] tensor")
+    n_rows, width = scores.shape
+    _check_nd("scores", scores, torch.float32, (n_rows, width), dev)
+    if not 1 <= k <= width:
+        raise ValueError(f"stage1_topk: k {k} outside [1, {width}]")
+    if not (1 <= shared_keys <= TOPK_SHARED_KEYS
+            and shared_keys & (shared_keys - 1) == 0):
+        raise ValueError(f"stage1_topk: shared_keys {shared_keys} is not a "
+                         f"power of two up to {TOPK_SHARED_KEYS}")
+    out_s = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
+    if n_rows == 0:
+        return out_s, out_i
+    cols = topk_scratch_cols(k, shared_keys)
+    scratch = (torch.empty((n_rows, cols), dtype=torch.int64, device=dev)
+               if cols else None)
+    _stage1_run("stage1_topk", lib, dev, lambda lb, stream: lb.stage1_topk(
+        scores.data_ptr(), width, n_rows, k, shared_keys,
+        scratch.data_ptr() if cols else None, cols, out_s.data_ptr(),
+        out_i.data_ptr(), stream))
+    return out_s, out_i
+
+
+def stage1_lim(cnt, live, thresh, bits, fidf, q_off, q_grp, k_out: int,
+               k2: int, window: int, id_offset: int, pad: int, *, lib=None):
+    """``csrc/stage1_lim.cu``: each query's LIM row (see
+    ``index/device.py lim_rows``): the ``k2`` lowest ids below
+    ``window`` whose ``cnt * live`` (f32 [n_q, width] and [width]) reaches
+    ``thresh`` (f32 [n_q]) > 0, or that a scoring fuzzy group (``bits``,
+    ``fidf``, ``q_off``, ``q_grp`` as in ``stage1_epilogue``; None for
+    none) covers where live > 0, ascending, plus ``id_offset``, padded
+    with ``pad`` to ``k_out``. Returns int32 [n_q, k_out]. One launch."""
+    dev = cnt.device
+    f32 = torch.float32
+    if cnt.dim() != 2:
+        raise ValueError("cnt: must be a [n_q, width] tensor")
+    n_q, width = cnt.shape
+    _check_nd("cnt", cnt, f32, (n_q, width), dev)
+    _check_nd("live", live, f32, (width,), dev)
+    _check_nd("thresh", thresh, f32, (n_q,), dev)
+    has_fz, words, ptrs = _fuzzy_cover(bits, fidf, q_off, q_grp, n_q, dev)
+    if has_fz and words * 32 < width:
+        raise ValueError("stage1_lim: presence rows narrower than the count "
+                         "rows")
+    if not (0 <= window <= width and 0 <= k2 <= k_out
+            and 0 <= id_offset and id_offset + width <= pad < (1 << 31)):
+        raise ValueError(f"stage1_lim: window {window}, k2 {k2}, k_out "
+                         f"{k_out}, offset {id_offset}, pad {pad} against "
+                         f"rows of {width}")
+    out = torch.empty((n_q, k_out), dtype=torch.int32, device=dev)
+    if n_q and k_out:
+        _stage1_run("stage1_lim", lib, dev, lambda lb, stream: lb.stage1_lim(
+            cnt.data_ptr(), width, n_q, live.data_ptr(), thresh.data_ptr(),
+            ptrs[0], words, ptrs[1], ptrs[2], ptrs[3], has_fz, int(window),
+            int(k2), int(k_out), int(id_offset), int(pad), out.data_ptr(),
+            stream))
     return out

@@ -15,12 +15,17 @@ Replicated state (postings, per-posting factors, word tables) is held
 once per distinct device, not once per shard. The reference's
 collectives become copies onto the first shard's device, in shard order:
 
-* the fuzzy virtual-term df ``psum`` is the sum of the shards' presence
-  row sums (exact: integer-valued f32 below 2^24), so every idf is the
+* the fuzzy virtual-term df ``psum`` is the sum of the shards' integer
+  dfs (each the count of its window's presence), so every idf is the
   unsharded one;
 * the ``pmax`` of the per-shard coverage-count row maxima is a max;
 * the ``all_gather`` + merge of the per-shard top-k lists is a
   concatenation in shard order and one packed-key top-k.
+
+Each shard runs the Stage-1 epilogue through ``index/device.py``'s
+dispatchers (on CUDA the four epilogue kernels: presence over its doc
+window, the pass, its local top-k, and its LIM rows against the global
+row max with global ids).
 
 Every per-doc score is the unsharded one bit for bit (the lane scatter
 adds a cell's terms in the same rank order, the fuzzy arithmetic is per
@@ -47,9 +52,10 @@ import torch
 
 from .. import runtime
 from ..index.device import (_LIM_PAD, DeviceIndex, LIM_K, LIM_WINDOW,
-                            _fuzzy_apply, _fuzzy_presence, order_keys,
+                            fuzzy_doc_factor, fuzzy_groups, fuzzy_idf,
+                            fuzzy_presence, lim_rows, order_keys,
                             prepare_batch_arrays, split_batch_by_lanes,
-                            stable_top_k)
+                            stable_top_k, stage1_epilogue)
 from ..ops import stage1_lanes as lanes
 from ..ops.coverage_kernel import _upload, coverage_fusion_batch
 
@@ -121,6 +127,7 @@ class _Replica(NamedTuple):
     cfac: torch.Tensor            # f32 [P + CHUNK]
     doc_lengths: torch.Tensor     # f32 [n_pad] (shards view their slice)
     avgdl: torch.Tensor           # f32 scalar
+    doc_fac: torch.Tensor         # f32 [n_pad] fuzzy per-doc factor
 
 
 class ShardedDeviceIndex:
@@ -156,7 +163,7 @@ class ShardedDeviceIndex:
             avg = torch.tensor(avgdl, dtype=_F32, device=dev)
             self._replicas[dev] = _Replica(
                 docs, lanes.posting_cfac(docs, _upload(pw, dev), dl_t, avg),
-                dl_t, avg)
+                dl_t, avg, fuzzy_doc_factor(dl_t, avg))
         self.doc_lengths = [
             self._replicas[dev].doc_lengths[lo:lo + self.shard_size]
             for lo, dev in self._shards()]
@@ -221,6 +228,10 @@ class ShardedDeviceIndex:
             starts[:n_t], lens[:n_t], idfs[:n_t], tq[:n_t], n_q, size, dev)
             for dev in self._replicas}
 
+        fz = ({dev: fuzzy_groups(fz_starts, fz_lens, fz_group, grp_query,
+                                 n_q, dev) for dev in self._replicas}
+              if n_grp else None)
+
         # 1-2. the lane kernel over each shard's doc window (one launch
         # per shard) and the fuzzy groups' presence over its docs
         shards = []
@@ -230,18 +241,18 @@ class ShardedDeviceIndex:
             cnt = torch.zeros(n_q * size, dtype=_F32, device=dev)
             lanes.scatter_lanes(scores, cnt, chunks[dev], rep.postings_docs,
                                 rep.cfac, lo, lo + size)
-            presence = (_fuzzy_presence(rep.postings_docs, fz_starts,
-                                        fz_lens, fz_group, n_grp, lo,
-                                        lo + size) if n_grp else None)
+            presence, df = (fuzzy_presence(rep.postings_docs, fz[dev], n_grp,
+                                           lo, lo + size)
+                            if n_grp else (None, None))
             shards.append((scores.view(n_q, size), cnt.view(n_q, size),
-                           presence))
+                           presence, df))
 
-        # 3. global df: the shards' presence row sums, summed in shard
-        # order on the first device
+        # 3. global df: the shards' integer dfs, summed in shard order on
+        # the first device
         df = None
         if n_grp:
-            for _, _, presence in shards:
-                part = presence.sum(dim=1).to(dev0)
+            for *_, part in shards:
+                part = part.to(dev0)
                 df = part if df is None else df + part
         td = float(np.float32(total_docs if total_docs is not None
                               else self.num_docs))
@@ -253,22 +264,20 @@ class ShardedDeviceIndex:
         k_local = min(k, size)
         tops_s, tops_i, row_max, lim_in = [], [], [], []
         for s, (lo, dev) in enumerate(self._shards()):
-            scores, cnt, presence = shards[s]
+            scores, cnt, presence, _ = shards[s]
             shards[s] = None        # each shard's matrices go when done
-            live = self.live_mask[s]
-            fz_any = None
-            if n_grp:
-                scores, cnt, fz_any = _fuzzy_apply(
-                    scores, cnt, presence, df.to(dev), self.doc_lengths[s],
-                    grp_query, torch.tensor(td, dtype=_F32, device=dev),
-                    torch.tensor(sl, dtype=_F32, device=dev),
-                    torch.clamp_min(self._replicas[dev].avgdl, 1e-9), n_q)
-            top_s, top_i = stable_top_k(scores * live[None, :], k_local)
+            fidf = (fuzzy_idf(df.to(dev),
+                              torch.tensor(td, dtype=_F32, device=dev),
+                              torch.tensor(sl, dtype=_F32, device=dev))
+                    if n_grp else None)
+            scores, cnt, rowmax, fz_any = stage1_epilogue(
+                scores, cnt, self.live_mask[s], fz[dev] if n_grp else None,
+                presence, fidf, self._replicas[dev].doc_fac[lo:lo + size])
+            top_s, top_i = stable_top_k(scores, k_local)
             tops_s.append(top_s.to(dev0))
             tops_i.append((top_i.long() + lo).to(dev0))
-            cnt = cnt * live[None, :]
-            row_max.append(cnt.max(dim=1).values.to(dev0))
-            lim_in.append((cnt, fz_any))
+            row_max.append(rowmax.to(dev0))
+            lim_in.append((cnt, fz_any, presence, fidf))
         g_s, g_i = _stable_merge(torch.cat(tops_s, dim=1),
                                  torch.cat(tops_i, dim=1), k)
 
@@ -279,18 +288,15 @@ class ShardedDeviceIndex:
         for m in row_max[1:]:
             gmax = torch.maximum(gmax, m)
         pad = max(_LIM_PAD, self.n_pad)
+        k2_local = min(LIM_K, k_local)
         lows = []
         for s, (lo, dev) in enumerate(self._shards()):
-            cnt, fz_any = lim_in[s]
-            g = gmax.to(dev)[:, None]
-            m = (cnt >= g) & (g > 0.0)
-            if fz_any is not None:
-                m = m | (fz_any & (self.live_mask[s][None, :] > 0.0))
-            gids = lo + torch.arange(size, device=dev, dtype=torch.int64)
-            key = torch.where(m & (gids[None, :] < LIM_WINDOW), gids[None, :],
-                              pad)
-            lows.append(torch.topk(key, min(LIM_K, k_local), dim=1,
-                                   largest=False, sorted=True).values.to(dev0))
+            cnt, fz_any, presence, fidf = lim_in[s]
+            lows.append(lim_rows(
+                cnt, self.live_mask[s], gmax.to(dev), k2_local, k2=k2_local,
+                window=min(max(LIM_WINDOW - lo, 0), size), pad=pad,
+                id_offset=lo, fz_any=fz_any, presence=presence, fidf=fidf,
+                fz=fz[dev] if n_grp else None).long().to(dev0))
         k2 = min(LIM_K, k)
         lim = torch.full((n_q, k), pad, dtype=torch.int64, device=dev0)
         lim[:, :k2] = torch.topk(torch.cat(lows, dim=1), k2, dim=1,

@@ -19,6 +19,17 @@ by an option of the package. Prints the card's name and power limit and a
 summary (kernels a coverage block, ``_coverage_block`` host ms a block),
 and writes the full tables to DIR/profile_torch_{route}.txt and
 DIR/profile_host_{route}.txt.
+
+Each profiled batch also prints the Stage-1 epilogue's device ms: by op
+(``aten::topk``, ``mul``, ``add``, ``index_add_``, ``copy_`` and the other
+ops of the plain epilogue) and by epilogue kernel (``csrc/stage1_*.cu``),
+and the batch's peak device bytes. ``--routes`` picks the turns; "plain
+epilogue" serves the Stage-1 epilogue by its plain versions on the card
+(``index/device.py _use_plain`` rebound), where the package has them. A
+tree without them (an earlier commit, unpacked with ``git archive``) runs
+this script too: ``python3 scripts/profile_torch_batch.py --root DIR``
+profiles the package under DIR, so parent and change are measured by the
+same script, in turns.
 """
 
 import argparse
@@ -31,7 +42,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 BATCH = 128
 #: functions whose cProfile rows the summary prints
@@ -48,6 +58,13 @@ COVERAGE_KERNELS = {"gather_block": "coverage_gather_kernel",
                     "coverage_cascade": "coverage_cascade_kernel",
                     "coverage_lcs": "coverage_lcs_kernel",
                     "coverage_fusion": "coverage_fusion_kernel"}
+#: the ops of the plain Stage-1 epilogue, and the epilogue's kernels
+EPILOGUE_OPS = ("aten::topk", "aten::mul", "aten::add", "aten::index_add_",
+                "aten::copy_", "aten::max", "aten::where", "aten::sum",
+                "aten::index_put_", "aten::ge", "aten::gt", "aten::fill_",
+                "aten::zero_", "aten::bitwise_or", "aten::gather")
+EPILOGUE_KERNELS = ("stage1_fuzzy_", "stage1_epilogue_kernel",
+                    "stage1_topk_kernel", "stage1_lim_kernel")
 
 
 def main(argv=None):
@@ -57,7 +74,14 @@ def main(argv=None):
     ap.add_argument("--with-plain", action="store_true",
                     help="also profile the route with no kernel in the "
                          "coverage program")
+    ap.add_argument("--routes", default=None,
+                    help="comma-separated turns (default: plain epilogue, "
+                         "kernel, kernel, plain epilogue where the package "
+                         "has the epilogue kernels, else kernel, kernel)")
+    ap.add_argument("--root", default=ROOT,
+                    help="the repository whose package is profiled")
     args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -92,16 +116,22 @@ def main(argv=None):
     print("warm-up walls ms", [round(serve(b) * 1e3, 1) for b in batches[:2]],
           flush=True)
 
+    from infidex_tpu_torch.index import device
     from infidex_tpu_torch.ops import coverage_kernel as ck
 
     kernels = tuple(getattr(ck, name) for name in COVERAGE_KERNELS)
     plain = tuple(getattr(ck, name + "_plain") for name in COVERAGE_KERNELS)
     routes = {"plain": plain, "plain fusion": kernels[:3] + plain[3:],
-              "eager gather": plain[:1] + kernels[1:], "kernel": kernels}
+              "eager gather": plain[:1] + kernels[1:], "kernel": kernels,
+              "plain epilogue": kernels}
+    use_plain = getattr(device, "_use_plain", None)
 
     def take(route):
         for name, fn in zip(COVERAGE_KERNELS, routes[route]):
             setattr(ck, name, fn)
+        if use_plain is not None:
+            device._use_plain = ((lambda t: True) if route == "plain epilogue"
+                                 else use_plain)
 
     def profiled(route):
         take(route)
@@ -109,9 +139,12 @@ def main(argv=None):
         block = ck._coverage_block
         ck._coverage_block = lambda *a, **k: blocks.append(1) or block(*a, **k)
         _kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall = serve(batches[2])
+        peak = torch.cuda.max_memory_allocated()
         ck._coverage_block = block
         ka = prof.key_averages()
         on_card = [e for e in ka if str(e.device_type).endswith("CUDA")]
@@ -131,6 +164,17 @@ def main(argv=None):
               f"{dict(_kernels.launch_counts)}, device ms of the coverage "
               f"kernels {hand}; aten::index {index_ms:.3f} ms device in "
               f"{index_calls} calls", flush=True)
+        ops = {op: round(sum(e.self_device_time_total for e in ka
+                             if e.key == op) / 1e3, 4)
+               for op in EPILOGUE_OPS}
+        mine = {k: (round(sum(e.self_device_time_total for e in on_card
+                              if k in e.key) / 1e3, 4),
+                    sum(e.count for e in on_card if k in e.key))
+                for k in EPILOGUE_KERNELS}
+        print(f"[profiler, {route}] Stage-1 epilogue, device ms by op "
+              f"{ {k: v for k, v in ops.items() if v} }; epilogue kernels "
+              f"(device ms, launches) {mine}; peak device memory {peak} B",
+              flush=True)
         tag = route.replace(" ", "_")
         with open(os.path.join(args.out, f"profile_torch_{tag}.txt"),
                   "w") as f:
@@ -165,8 +209,12 @@ def main(argv=None):
                       f"({v[3] * 1e3 / max(v[1], 1):.2f} ms a call), self "
                       f"{v[2] * 1e3:.1f} ms")
 
-    turns = (("plain", "plain fusion") if args.with_plain else ()) + (
-        "eager gather", "kernel", "kernel", "eager gather")
+    if args.routes:
+        turns = tuple(args.routes.split(","))
+    else:
+        turns = (("plain epilogue", "kernel", "kernel", "plain epilogue")
+                 if use_plain is not None else ("kernel", "kernel"))
+    turns = (("plain", "plain fusion") if args.with_plain else ()) + turns
     try:
         for route in turns:
             profiled(route)
