@@ -39,8 +39,10 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      presence bitset and df, the pass over [n_q, n_pad] that adds them and
      the live mask and takes the count row max, the exact stable top-k,
      the LIM rows), each against its plain version on the bench batch's
-     first Stage-1 group (128 x 1,048,576; top-k at k 500 and 20,000) and
-     on a tie-heavy index (k 500 and 2,000): bit-equal, two identical
+     first Stage-1 group (128 x 1,048,576; top-k at k 500 and 20,000),
+     its first row and first 8 rows (a single query, a small group: the
+     top-k and LIM kernels serve a row with a cluster of up to 16 blocks)
+     and on a tie-heavy index (k 500 and 2,000): bit-equal, two identical
      runs, one launch per call, the device time (torch.profiler) beside
      the plain version's in turns, the bound, and the library call's time
      (``torch.topk`` over the int64 keys; the LIM's masked ``torch.topk``).
@@ -60,8 +62,9 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      batches below: long titles, large vocabulary, segments, pool scoring
      and sharded, whose [3, C] layout has no fake-LCS), and the epilogue's
      pass, top-k and LIM kernels once per Stage-1 group (per shard on the
-     sharded path), its fuzzy kernel once per group with fuzzy groups, and
-     the top-k once more per pool-scored dispatch.
+     sharded path, with two more top-k launches a group for the shards'
+     merges), its fuzzy kernel once per group with fuzzy groups, and the
+     top-k once more per pool-scored dispatch.
      Prints per-batch wall ms, queries per second, device calls, host
      fallbacks, peak device memory and the top hit of a typo query.
   5. ``--recall``: recall@10 against the depth oracle (bench.py's
@@ -105,7 +108,10 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
  12. Sharded serving: the same index served by a mesh of 4 shards on the
      one card, then by a one-shard mesh: two 128-query batches and 16
      single ``search`` calls each, identical between the meshes; one
-     lane-kernel launch per shard per group.
+     lane-kernel launch per shard per group, and two more top-k launches
+     per group for the shards' score and LIM merges, which then equal the
+     merges they replace on the first group's lists (top-k kernel device
+     time beside ``torch.topk`` and the bound).
 
 At the end no loaded module and no native library may come from the JAX
 package's directory. Each phase prints its seconds. The line before the
@@ -1386,7 +1392,7 @@ class Stage1Count:
         from infidex_tpu_torch.index import device
         from infidex_tpu_torch.parallel import sharding
 
-        self.groups = self.fuzzy = self.pools = 0
+        self.groups = self.fuzzy = self.pools = self.merges = 0
         self._orig = (device.DeviceIndex._dispatch_group,
                       sharding.ShardedDeviceIndex._search_group,
                       device.pool_score)
@@ -1404,6 +1410,7 @@ class Stage1Count:
         def shard_group(index, queries, *a, **kw):
             self.groups += len(index.mesh)
             self.fuzzy += len(index.mesh) * has_fz(queries)
+            self.merges += 2        # the shards' score and LIM merges
             return search(index, queries, *a, **kw)
 
         def pooled(*a, **kw):
@@ -1426,17 +1433,21 @@ class Stage1Count:
     def check(self, counts, what: str) -> None:
         """One epilogue, top-k and LIM launch per group (and shard), one
         fuzzy launch per group with fuzzy groups, one more top-k per pool
-        dispatch."""
+        dispatch, and two more (the score and LIM merges) per sharded
+        group."""
         check(self.groups > 0 and counts["stage1_epilogue"]
               == counts["stage1_lim"] == self.groups
-              and counts["stage1_topk"] == self.groups + self.pools
+              and counts["stage1_topk"]
+              == self.groups + self.pools + self.merges
               and counts["stage1_fuzzy"] == self.fuzzy,
               f"{what}: epilogue launches {counts} for {self.groups} "
-              f"Stage-1 groups ({self.fuzzy} with fuzzy groups) and "
-              f"{self.pools} pool dispatches")
+              f"Stage-1 groups ({self.fuzzy} with fuzzy groups), "
+              f"{self.pools} pool dispatches and {self.merges} shard "
+              f"merges")
         log(f"[{what}] Stage-1 epilogue: {self.groups} groups "
             f"({self.fuzzy} with fuzzy groups), {self.pools} pool "
-            f"dispatches: fuzzy {counts['stage1_fuzzy']}, pass "
+            f"dispatches, {self.merges} shard merges: fuzzy "
+            f"{counts['stage1_fuzzy']}, pass "
             f"{counts['stage1_epilogue']}, top-k {counts['stage1_topk']}, "
             f"LIM {counts['stage1_lim']} launches")
 
@@ -1523,7 +1534,8 @@ def unpack_bits(torch, bits, width: int):
     return flat[:, :width].bool(), bool(flat[:, width:].any())
 
 
-def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str):
+def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str,
+                   sub_rows=()):
     """The four epilogue kernels against their plain versions on the first
     Stage-1 group of ``preps``: presence bits and df, the pass's scores,
     counts and row maxima, the top-k at each depth of ``ks`` and the LIM
@@ -1531,8 +1543,10 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str):
     kernel's device time (torch.profiler) beside its plain version's
     (events), in turns, its bound from this group's data, and the library
     call's time where one computes the same (``torch.topk`` over the int64
-    keys; the LIM's masked ``torch.topk``). Returns the measurements by
-    kernel (the top-k's by depth under "by_k")."""
+    keys; the LIM's masked ``torch.topk``). The same for the group's first
+    n rows, for each n of ``sub_rows`` (a single query, a small group).
+    Returns the measurements by kernel (the top-k's by depth under "by_k",
+    the first rows' under "by_rows")."""
     from infidex_tpu_torch.index import device as D
 
     scores, cnt, fz, n_grp = stage1_group(torch, dev_index, preps)
@@ -1703,6 +1717,52 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str):
         f"{n_q} rows, {int((members < k2).sum())} rows with fewer than k2")
     out["stage1_lim"] = dict(max_abs_err=int((l1 - want).abs().max()))
 
+    # 5. the group's first rows: a single query, a small group
+    by_rows = {"stage1_topk": {}, "stage1_lim": {}}
+    for n in sub_rows:
+        s_n, c_n, m_n = (t[:n].contiguous() for t in (s_k, c_k, m_k))
+        for kk in ks:
+            want = D.stable_top_k_plain(s_p[:n], kk)
+            got = _kernels.stage1_topk(s_n, kk)
+            torch.cuda.synchronize()
+            check(torch.equal(got[1], want[1]) and equal(got[0], want[0]),
+                  f"top-k kernel ({label}, {n} rows, k {kk}): differs from "
+                  f"the plain version")
+            by_rows["stage1_topk"][f"{n} rows, k {kk}"] = dict(
+                max_abs_err=int((got[1] - want[1]).abs().max()))
+            runs[f"stage1_topk {kk} rows {n}"] = (
+                lambda kk=kk, s_n=s_n: _kernels.stage1_topk(s_n, kk),
+                lambda kk=kk, n=n: D.stable_top_k_plain(s_p[:n], kk),
+                lambda kk=kk, n=n: torch.topk(keys[:n], kk, dim=1,
+                                              largest=True, sorted=True),
+                4 * n * n_pad + 8 * n * kk,
+                f"k {kk}, {n} rows of {n_pad}, "
+                f"{_kernels.topk_slices(n, n_pad, dev)} blocks a row")
+        fz_n = None if fz_any is None else fz_any[:n]
+        q_off_n = None if q_off is None else q_off[:n + 1].contiguous()
+        want = D.lim_rows_plain(c_p[:n], live, m_p[:n], fz_n, k, k2, window,
+                                0, pad)
+        n_args = (c_n, live, m_n, bits, fidf, q_off_n, q_grp, k, k2, window,
+                  0, pad)
+        got = _kernels.stage1_lim(*n_args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"LIM kernel ({label}, {n} rows): "
+              f"differs from the plain version")
+        by_rows["stage1_lim"][f"{n} rows"] = dict(
+            max_abs_err=int((got - want).abs().max()))
+        nbytes = 4 * int(stop[:n].sum()) + 4 * int(stop[:n].max()) \
+            + 4 * n * k + 4 * n
+        if n_grp:
+            nbytes += 4 * int((per_q[:n] * ((stop[:n] + 31) // 32)).sum())
+        runs[f"stage1_lim rows {n}"] = (
+            lambda n_args=n_args: _kernels.stage1_lim(*n_args),
+            lambda n=n, fz_n=fz_n: D.lim_rows_plain(
+                c_p[:n], live, m_p[:n], fz_n, k, k2, window, 0, pad),
+            lambda n=n: torch.topk(lkey[:n], k2, dim=1, largest=False,
+                                   sorted=True),
+            nbytes, f"k {k}, k2 {k2}, {n} rows, "
+            f"{_kernels.lim_slices(n, window, dev)} blocks a row")
+
     # times: the kernel on the device (a profiler session each turn), the
     # plain version and the library call by events, in turns
     for name, (kernel_fn, plain_fn, lib_fn, nbytes, what) in runs.items():
@@ -1724,7 +1784,12 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str):
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound[0], bound_by=bound[1], bound_bytes=nbytes,
                    turns=dev_ms, plain_turns=plain_t)
-        if base == "stage1_topk":
+        parts = name.split()
+        if "rows" in parts:
+            sub = f"{parts[-1]} rows" + (f", k {parts[1]}"
+                                         if base == "stage1_topk" else "")
+            by_rows[base][sub].update(row)
+        elif base == "stage1_topk":
             by_k[int(name.split()[1])].update(row)
         else:
             out[base].update(row)
@@ -1735,7 +1800,9 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str):
             f"{plain_ms:.4f} ms ({plain_t}){lib}; bound "
             f"{bound[0]:.4f} ms by {bound[1]} ({nbytes} B), "
             f"{bound[0] / ms:.1%} of the device time")
-    out["stage1_topk"] = dict(by_k[ks[0]], by_k=by_k)
+    out["stage1_topk"] = dict(by_k[ks[0]], by_k=by_k,
+                              by_rows=by_rows["stage1_topk"])
+    out["stage1_lim"]["by_rows"] = by_rows["stage1_lim"]
     return out
 
 
@@ -1747,7 +1814,7 @@ def epilogue_phase(torch, it, eng, queries, _kernels):
     preps = [p for p in map(m.prepare_stage1, queries[:BATCH])
              if p is not None]
     bench = epilogue_check(torch, _kernels, m.device, preps, (500, 20_000),
-                           "bench group")
+                           "bench group", sub_rows=(1, 8))
     tm = build_engine(it, tie_corpus()).vector_model
     tpreps = [tm.prepare_stage1(q) for q in
               ("yorin", "yorinba cezen", "yorinka", "dozen yorin")]
@@ -2522,11 +2589,57 @@ def pool_phase(torch, it, eng, queries, resident, _kernels):
                         bound_ms=bound[0], bound_by=bound[1])
 
 
+def shard_merge_check(torch, _kernels, inputs):
+    """The shards' score and LIM merges (``parallel/sharding.py``
+    ``_stable_merge``, ``_lim_merge``: the top-k kernel over the gathered
+    rows) on the first sharded group's inputs: equal to the merges they
+    replace (one ``torch.topk`` over packed (score, id) keys; the lowest
+    ids by ``torch.topk``), the top-k kernel's device time, its bound and
+    the time of that ``torch.topk``."""
+    from infidex_tpu_torch.index import device as D
+    from infidex_tpu_torch.parallel import sharding
+
+    (all_s, all_i, k), (lows, k2, pad) = inputs["score"], inputs["lim"]
+    got_s, got_i = sharding._stable_merge(all_s, all_i, k)
+    keys = D.order_keys(all_s, all_i)
+    pos = torch.topk(keys, k, dim=1, largest=True, sorted=True).indices
+    check(torch.equal(got_i, torch.gather(all_i, 1, pos))
+          and torch.equal(got_s.view(torch.int32),
+                          torch.gather(all_s, 1, pos).view(torch.int32)),
+          "shard score merge: differs from the packed-key top-k")
+    got = sharding._lim_merge(lows, k2, pad)
+    check(torch.equal(got, torch.topk(lows, k2, dim=1, largest=False,
+                                      sorted=True).values),
+          "shard LIM merge: differs from the lowest ids")
+    n_q, width = all_s.shape
+    out = {}
+    for name, fn, lib_fn, nbytes in (
+            ("score", lambda: sharding._stable_merge(all_s, all_i, k),
+             lambda: torch.topk(keys, k, dim=1, largest=True, sorted=True),
+             4 * n_q * width + 8 * n_q * k),
+            ("lim", lambda: sharding._lim_merge(lows, k2, pad),
+             lambda: torch.topk(lows, k2, dim=1, largest=False, sorted=True),
+             4 * n_q * lows.shape[1] + 8 * n_q * k2)):
+        fn()
+        ms, kept, src = kernel_ms(torch, fn, "stage1_topk_kernel", 5)
+        lib_ms = cuda_ms(torch, lib_fn, reps=3)
+        bound = bound_ms(nbytes, 0, F32_PEAK)
+        out[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound[0],
+                         bound_by=bound[1], bound_bytes=nbytes,
+                         rows=n_q, width=width, timing=src)
+        log(f"[sharded] {name} merge ({n_q} rows of {width}): equal to the "
+            f"merge it replaces; top-k kernel {ms:.4f} ms on the device "
+            f"({kept}), torch.topk {lib_ms:.4f} ms; bound {bound[0]:.4f} ms "
+            f"by {bound[1]} ({nbytes} B)")
+    return out
+
+
 def sharded_phase(torch, it, eng, queries, resident, _kernels):
     """The 1M-doc index served by SHARDS shards on the one card, then by a
     one-shard mesh: identical results, one lane launch per shard and
-    group."""
+    group; then the shards' merges on the first group's inputs."""
     from infidex_tpu_torch.ops import coverage_kernel as ck
+    from infidex_tpu_torch.parallel import sharding
     from infidex_tpu_torch.parallel.sharding import make_mesh
 
     m = eng.vector_model
@@ -2544,6 +2657,17 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
         groups = []
         sdi._search_group = (lambda *a, _f=sdi._search_group:
                              groups.append(1) or _f(*a))
+        merge_in, merges = {}, (sharding._stable_merge, sharding._lim_merge)
+
+        def spy(name, f):
+            def take(*a):
+                merge_in.setdefault(name, tuple(
+                    t.clone() if torch.is_tensor(t) else t for t in a))
+                return f(*a)
+            return take
+
+        sharding._stable_merge = spy("score", merges[0])
+        sharding._lim_merge = spy("lim", merges[1])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launch_counts()
@@ -2558,6 +2682,7 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
             counts = dict(_kernels.launch_counts)
         epi.__exit__()
         del sdi._search_group
+        sharding._stable_merge, sharding._lim_merge = merges
         n_groups = len(groups)
         check_per_block(counts, blocks.n, f"sharded ({n_sh} shards)",
                         lcs=False)
@@ -2586,6 +2711,7 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
               f"{n_groups} groups of {n_sh} shards")
         if n_sh == SHARDS:
             sharded_counts = counts
+            merge_times = shard_merge_check(torch, _kernels, merge_in)
             found = check_results(batches, N_DOCS, "sharded batch")
             check(found >= len(batches) * 0.9,
                   f"sharded: only {found}/{len(batches)} found anything")
@@ -2603,7 +2729,7 @@ def sharded_phase(torch, it, eng, queries, resident, _kernels):
         f"lists equal to phase 4's resident lists on {same}/{2 * BATCH} "
         f"(the sharded route has no host Stage 1, pre-filter or device "
         f"LCS)")
-    return sharded_counts
+    return sharded_counts, merge_times
 
 
 def loaded_from(root: str):
@@ -2732,8 +2858,8 @@ def main(argv=None) -> int:
     timed("6 single queries", single_query_phase, it, eng, queries)
     pool_counts, pk = timed("11 pool scoring", pool_phase, torch, it, eng,
                             queries, resident, _kernels)
-    shard_counts = timed("12 sharded", sharded_phase, torch, it, eng,
-                         queries, resident, _kernels)
+    shard_counts, shard_merges = timed("12 sharded", sharded_phase, torch,
+                                       it, eng, queries, resident, _kernels)
     big, big_titles, vocab, fk, vocab_counts, ek2["large vocabulary"] = timed(
         "7 large vocabulary", big_vocab_phase, torch, it, bench, _kernels)
     timed("8 writes", writes_phase, torch, it, bench, big, big_titles, vocab)
@@ -2770,7 +2896,7 @@ def main(argv=None) -> int:
     main_cascade = next(k for k, v in ck2.items() if v["origin"] == "bench")
     main_pairs = main_cascade + " distances"
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "stage1_scatter_lanes", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/stage1_lanes.cu",
         "replaces": "infidex_tpu/ops/stage1_lanes.py:184",
@@ -2862,7 +2988,11 @@ def main(argv=None) -> int:
         for name, line in (("coverage_lcs", 1038),
                            ("coverage_fusion", 1079))] + [
         epilogue_entry(name, counts, paths, per_batch, ek2)
-        for name in EPILOGUE_REPLACES]}), flush=True)
+        for name in EPILOGUE_REPLACES]
+    # the top-k kernel also merges the shards' lists (phase 12)
+    next(e for e in kernels if e["name"] == "stage1_topk")["shard_merges"] = \
+        shard_merges
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

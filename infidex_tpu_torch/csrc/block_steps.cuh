@@ -66,6 +66,21 @@ GRP_HD int sum_int(const Warp& g, const F& val) {
 #endif
 }
 
+// The largest val(l) over the lanes, of unsigned ints.
+template <class F>
+GRP_HD unsigned max_uint(const Warp& g, const F& val) {
+#if defined(__CUDA_ARCH__)
+  return __reduce_max_sync(g.mask, val(g.lane));
+#else
+  unsigned m = val(0);
+  for (int l = 1; l < 32; ++l) {
+    const unsigned v = val(l);
+    m = v > m ? v : m;
+  }
+  return m;
+#endif
+}
+
 // Integer atomics (plain on the host, where warps run in turn).
 GRP_HD void atomic_add(int* p, int v) {
 #if defined(__CUDA_ARCH__)
@@ -76,6 +91,14 @@ GRP_HD void atomic_add(int* p, int v) {
 }
 
 GRP_HD void atomic_max(int* p, int v) {
+#if defined(__CUDA_ARCH__)
+  atomicMax(p, v);
+#else
+  if (v > *p) *p = v;
+#endif
+}
+
+GRP_HD void atomic_max(unsigned* p, unsigned v) {
 #if defined(__CUDA_ARCH__)
   atomicMax(p, v);
 #else

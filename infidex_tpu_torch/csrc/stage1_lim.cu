@@ -16,14 +16,22 @@
 // k_out. The threshold and the offset are inputs, so a shard takes the
 // global row max and writes global ids.
 //
-// Design. A block of 1024 threads a query walks its ids in order, 16,384
-// a round: each warp counts its 512 ids' members with lane counters (its
-// loads issued together; the query's scoring groups staged in shared
-// memory), a prefix over the warps gives each warp its first place, and
-// the warps that hold members below the k2-th read their ids again to
-// place them (a ballot a warp and 32 ids). It stops after the chunk of the
-// k2-th member; a query whose class has fewer reads the whole window
-// once, and the segments that hold members twice.
+// Design. A query's window is cut into 1-16 id-ordered slices, a block
+// of 512 threads each, the blocks of one thread block cluster. Each block
+// walks its slice in order, 8,192 ids a round: each warp counts its 512
+// ids' members with lane counters (its loads issued together; the query's
+// scoring groups staged in shared memory), a prefix over the warps gives
+// each warp its first place, and the warps that hold members below the
+// k2-th read their ids again to place them into the block's list (a
+// ballot a warp and 32 ids). Each block pushes its count to the others
+// through distributed shared memory and stops after the chunk of its own
+// k2-th member or once the slices before it hold k2; then each writes its
+// list after the members of the slices before it. A query whose class is
+// smaller than k2 so reads its window once with up to 16 SMs in place of
+// one. The slice count (ops/_kernels.py lim_slices) allows up to four
+// waves of blocks: rows end at very different times (a dense class after
+// its first chunk), and shorter blocks even the load: 8 blocks a row for a
+// group of 128 queries, 16 for one.
 //
 // What bounds it. Bytes: the count row and the live mask up to the k2-th
 // member (the whole window for a query whose class is smaller than k2),
@@ -35,31 +43,49 @@
 
 namespace {
 
-__global__ void __launch_bounds__(lim::kThreads)
+__global__ void __launch_bounds__(lim::kThreads, 2)
 stage1_lim_kernel(const lim::Args a) {
   __shared__ lim::Shared sh;
-  lim::row(a, blockIdx.x, &sh);
+  lim::row(a, static_cast<int>(blockIdx.x) / a.slices,
+           lim::Cl(a.slices, &sh));
 }
 
 }  // namespace
 
 extern "C" {
 
-// The LIM rows of n_q queries on `stream` (lim::Args names the arrays):
-// window <= width, k2 <= k_out; with has_fz, q_off has n_q + 1 entries and
-// q_grp the groups they point to (each below the bitset's rows and fidf's
-// length). Returns cudaGetLastError() of the launch (0 on success).
+// The LIM rows of n_q queries on `stream` (lim::Args names the arrays),
+// a cluster of `slices` blocks a query: window <= width, k2 <= k_out; with
+// has_fz, q_off has n_q + 1 entries and q_grp the groups they point to
+// (each below the bitset's rows and fidf's length); lists of more than
+// list_keys ids in `scratch` ([n_q, slices, k2]). Returns the launch's
+// error code (0 on success), or cudaErrorInvalidValue for a slice count
+// or list size it does not take.
 int stage1_lim(const float* cnt, long long width, int n_q, const float* live,
                const float* thresh, const unsigned* bits, long long words,
                const float* fidf, const int* q_off, const int* q_grp,
                int has_fz, long long window, int k2, int k_out, int id_offset,
-               int pad, int* out, void* stream) {
+               int pad, int* out, int slices, int list_keys, int* scratch,
+               void* stream) {
   if (n_q <= 0 || k_out <= 0) return 0;
+  if (!lim::args_ok(slices, list_keys, k2, scratch)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const lim::Args a{cnt, width, n_q, live, thresh, bits, words, fidf, q_off,
-                    q_grp, has_fz, window, k2, k_out, id_offset, pad, out};
-  stage1_lim_kernel<<<n_q, lim::kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+                    q_grp, has_fz, window, k2, k_out, id_offset, pad, out,
+                    slices, list_keys, scratch};
+  return static_cast<int>(clu::launch_clusters(
+      stage1_lim_kernel, a, n_q, slices, lim::kThreads, 0,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// How many clusters of `slices` blocks of the LIM kernel can be resident
+// at once, or minus an error code.
+int stage1_lim_clusters(int slices) {
+  if (!clu::slices_ok(slices)) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  return clu::active_clusters(stage1_lim_kernel, slices, lim::kThreads, 0);
 }
 
 }  // extern "C"

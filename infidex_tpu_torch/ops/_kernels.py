@@ -116,9 +116,11 @@ def bind(lib):
             ("coverage_fusion", [p] * 29 + [i] * 5 + [p, i, p, p]),
             ("stage1_fuzzy", [p, p, p, i, ll, p, i, i, p, ll, i, p, p]),
             ("stage1_epilogue", [p, p, ll, i, p, p, ll, p, p, p, p, i, p, p]),
-            ("stage1_topk", [p, ll, i, i, i, p, ll, p, p, p]),
+            ("stage1_topk", [p, ll, i, i, i, i, i, p, ll, p, p, p]),
             ("stage1_lim", [p, ll, i, p, p, p, ll, p, p, p, i, ll, i, i, i, i,
-                            p, p])):
+                            p, i, i, p, p]),
+            ("stage1_topk_clusters", [i, i]),
+            ("stage1_lim_clusters", [i])):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i
@@ -704,9 +706,22 @@ def coverage_fusion(state, pairs, fq_pairs, doc, queries, qsel, lcs_vals,
 # given by the caller (the g++ build of the cell headers in the CPU tests)
 # runs on the tensors' own device, CPU included, and is not counted.
 
-#: S sizes the top-k kernel sorts in shared memory (kSharedKeys in
-#: ``csrc/stage1_topk_cell.cuh``); a larger k takes a global scratch row
+#: the size of the top-k kernel's sorted set S at which its select may
+#: stop (kSharedKeys in ``csrc/stage1_topk_cell.cuh``)
 TOPK_SHARED_KEYS = 16384
+#: keys of a block's run that the top-k kernel sorts in shared memory; a
+#: larger run takes a region of a global scratch row. At most
+#: TOPK_MAX_RUN_KEYS (kRunKeys in ``csrc/stage1_topk_cell.cuh``)
+TOPK_RUN_KEYS = 4096
+TOPK_MAX_RUN_KEYS = 16384
+#: member ids of a block's LIM list kept in shared memory (kListKeys in
+#: ``csrc/stage1_lim_cell.cuh``); a larger k2 takes a global scratch
+LIM_LIST_KEYS = 1024
+#: ids a slice of the top-k and LIM kernels holds at least
+SLICE_IDS = 16384
+#: the clusters a card holds at once where there is no card to ask (the
+#: host build in the tests): an H100's 132 SMs, two blocks each
+HOST_BLOCKS = 264
 
 
 def _stage1_run(name: str, lib, dev, call) -> None:
@@ -822,27 +837,92 @@ def stage1_epilogue(scores, cnt, live, bits, fidf, doc_fac, q_off, q_grp,
     return rowmax.view(f32)
 
 
-def topk_scratch_cols(k: int, shared_keys: int = TOPK_SHARED_KEYS) -> int:
-    """Columns of the top-k kernel's global scratch for depth ``k``: the
-    power of two at or above k where that exceeds ``shared_keys``, else 0
-    (no scratch)."""
+
+
+_resident = {}
+
+
+def resident_clusters(name: str, dev, slices: int, *extra) -> int:
+    """How many clusters of ``slices`` blocks of kernel ``name`` (its
+    ``<name>_clusters`` occupancy entry point, with ``extra`` arguments)
+    ``dev`` holds at once (none where the card refuses that cluster size);
+    for a device that is no card, ``HOST_BLOCKS // slices``."""
+    if dev.type != "cuda":
+        return HOST_BLOCKS // slices
+    key = (name, dev.index, slices) + extra
+    if key not in _resident:
+        build()
+        with torch.cuda.device(dev):
+            _resident[key] = max(
+                getattr(_lib, f"{name}_clusters")(slices, *extra), 0)
+    return _resident[key]
+
+
+def row_slices(n_rows: int, width: int, resident) -> int:
+    """Blocks a row (a cluster) for the top-k and LIM kernels: the largest
+    power of two up to 16 that keeps slices of at least ``SLICE_IDS`` ids
+    and all ``n_rows`` clusters on the card at once (``resident(s)``: the
+    clusters of s blocks it holds). A group of 128 queries so takes 2
+    blocks a row on an H100, a single query 16."""
+    s = 1
+    while (s < 16 and 2 * s * SLICE_IDS <= width
+           and n_rows <= resident(2 * s)):
+        s *= 2
+    return s
+
+
+def topk_slices(n_rows: int, width: int, dev,
+                run_keys: int = TOPK_RUN_KEYS) -> int:
+    """The top-k kernel's blocks a row by ``row_slices`` on ``dev``."""
+    return row_slices(n_rows, width, lambda c: resident_clusters(
+        "stage1_topk", dev, c, run_keys))
+
+
+#: waves of blocks the LIM kernel's slice rule allows: its rows end at
+#: very different times (a dense class after its first chunk, a small one
+#: after its whole window), and more, shorter blocks even the card's load
+LIM_WAVES = 4
+
+
+def lim_slices(n_q: int, window: int, dev) -> int:
+    """The LIM kernel's blocks a row by ``row_slices`` on ``dev``, with up to
+    ``LIM_WAVES`` times the blocks the card holds at once."""
+    blocks = LIM_WAVES * resident_clusters("stage1_lim", dev, 1)
+    return row_slices(n_q, window, lambda c: blocks // c)
+
+
+def _check_slices(name: str, slices: int) -> None:
+    if slices not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{name}: slices {slices} is not 1, 2, 4, 8 or 16")
+
+
+def topk_scratch_cols(k: int, shared_keys: int = TOPK_SHARED_KEYS,
+                      run_keys: int = TOPK_RUN_KEYS) -> int:
+    """Columns of the top-k kernel's global scratch rows
+    (``topk::scratch_cols_for``): none where every block's run fits
+    ``run_keys`` (the sorted set holds at most max(k, shared_keys) ids),
+    else twice that."""
+    most = max(k, shared_keys)
     p = 1
-    while p < k:
-        p *= 2
-    return p if p > shared_keys else 0
+    while p < most:
+        p <<= 1
+    return 0 if p <= run_keys else 2 * most
 
 
 def stage1_topk(scores, k: int, *, shared_keys: int = TOPK_SHARED_KEYS,
-                lib=None):
+                run_keys: int = TOPK_RUN_KEYS, slices=None, lib=None):
     """``csrc/stage1_topk.cu``: the exact top ``k`` of each row of
     ``scores`` (f32 [n_rows, width], contiguous) by (score desc, id asc),
     in that order, for 1 <= k <= width (see ``index/device.py
     stable_top_k``). Returns (scores f32 [n_rows, k], the rows' own
-    values; ids int32 [n_rows, k]). The kernel sorts up to
-    ``shared_keys`` (a power of two up to ``TOPK_SHARED_KEYS``; the tests
-    lower it to reach the other paths at small widths) in shared memory;
-    its scratch rows for more come from the torch allocator. One
-    launch."""
+    values; ids int32 [n_rows, k]). Each row is served by a cluster of
+    ``slices`` blocks (default ``topk_slices``). The kernel's select
+    stops once its sorted set holds at most ``shared_keys`` (a power of
+    two up to ``TOPK_SHARED_KEYS``) and each block sorts up to
+    ``run_keys`` keys in shared memory (a power of two up to
+    ``TOPK_MAX_RUN_KEYS``; the tests lower both to reach the other paths
+    at small widths); the scratch rows for larger runs come from the
+    torch allocator. One launch."""
     dev = scores.device
     if scores.dim() != 2:
         raise ValueError("scores: must be a [n_rows, width] tensor")
@@ -850,33 +930,42 @@ def stage1_topk(scores, k: int, *, shared_keys: int = TOPK_SHARED_KEYS,
     _check_nd("scores", scores, torch.float32, (n_rows, width), dev)
     if not 1 <= k <= width:
         raise ValueError(f"stage1_topk: k {k} outside [1, {width}]")
-    if not (1 <= shared_keys <= TOPK_SHARED_KEYS
-            and shared_keys & (shared_keys - 1) == 0):
-        raise ValueError(f"stage1_topk: shared_keys {shared_keys} is not a "
-                         f"power of two up to {TOPK_SHARED_KEYS}")
+    for what, v, top in (("shared_keys", shared_keys, TOPK_SHARED_KEYS),
+                         ("run_keys", run_keys, TOPK_MAX_RUN_KEYS)):
+        if not (1 <= v <= top and v & (v - 1) == 0):
+            raise ValueError(f"stage1_topk: {what} {v} is not a power of "
+                             f"two up to {top}")
+    if slices is None:
+        slices = topk_slices(n_rows, width, dev, run_keys)
+    _check_slices("stage1_topk", slices)
     out_s = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
     if n_rows == 0:
         return out_s, out_i
-    cols = topk_scratch_cols(k, shared_keys)
+    cols = topk_scratch_cols(k, shared_keys, run_keys)
     scratch = (torch.empty((n_rows, cols), dtype=torch.int64, device=dev)
                if cols else None)
     _stage1_run("stage1_topk", lib, dev, lambda lb, stream: lb.stage1_topk(
-        scores.data_ptr(), width, n_rows, k, shared_keys,
+        scores.data_ptr(), width, n_rows, k, shared_keys, run_keys, slices,
         scratch.data_ptr() if cols else None, cols, out_s.data_ptr(),
         out_i.data_ptr(), stream))
     return out_s, out_i
 
 
 def stage1_lim(cnt, live, thresh, bits, fidf, q_off, q_grp, k_out: int,
-               k2: int, window: int, id_offset: int, pad: int, *, lib=None):
+               k2: int, window: int, id_offset: int, pad: int, *,
+               slices=None, list_keys: int = LIM_LIST_KEYS, lib=None):
     """``csrc/stage1_lim.cu``: each query's LIM row (see
     ``index/device.py lim_rows``): the ``k2`` lowest ids below
     ``window`` whose ``cnt * live`` (f32 [n_q, width] and [width]) reaches
     ``thresh`` (f32 [n_q]) > 0, or that a scoring fuzzy group (``bits``,
     ``fidf``, ``q_off``, ``q_grp`` as in ``stage1_epilogue``; None for
     none) covers where live > 0, ascending, plus ``id_offset``, padded
-    with ``pad`` to ``k_out``. Returns int32 [n_q, k_out]. One launch."""
+    with ``pad`` to ``k_out``. Returns int32 [n_q, k_out]. Each query is
+    served by a cluster of ``slices`` blocks (default ``lim_slices`` over
+    the window), each keeping its first ``k2`` members in
+    shared memory up to ``list_keys`` (at most ``LIM_LIST_KEYS``; the tests
+    lower it), else in a scratch from the torch allocator. One launch."""
     dev = cnt.device
     f32 = torch.float32
     if cnt.dim() != 2:
@@ -894,11 +983,20 @@ def stage1_lim(cnt, live, thresh, bits, fidf, q_off, q_grp, k_out: int,
         raise ValueError(f"stage1_lim: window {window}, k2 {k2}, k_out "
                          f"{k_out}, offset {id_offset}, pad {pad} against "
                          f"rows of {width}")
+    if slices is None:
+        slices = lim_slices(n_q, window, dev)
+    _check_slices("stage1_lim", slices)
+    if not 0 <= list_keys <= LIM_LIST_KEYS:
+        raise ValueError(f"stage1_lim: list_keys {list_keys} outside "
+                         f"[0, {LIM_LIST_KEYS}]")
     out = torch.empty((n_q, k_out), dtype=torch.int32, device=dev)
     if n_q and k_out:
+        scratch = (torch.empty((n_q, slices, k2), dtype=torch.int32,
+                               device=dev) if k2 > list_keys else None)
         _stage1_run("stage1_lim", lib, dev, lambda lb, stream: lb.stage1_lim(
             cnt.data_ptr(), width, n_q, live.data_ptr(), thresh.data_ptr(),
             ptrs[0], words, ptrs[1], ptrs[2], ptrs[3], has_fz, int(window),
             int(k2), int(k_out), int(id_offset), int(pad), out.data_ptr(),
-            stream))
+            slices, list_keys,
+            scratch.data_ptr() if scratch is not None else None, stream))
     return out

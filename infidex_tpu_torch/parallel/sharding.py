@@ -53,9 +53,9 @@ import torch
 from .. import runtime
 from ..index.device import (_LIM_PAD, DeviceIndex, LIM_K, LIM_WINDOW,
                             fuzzy_doc_factor, fuzzy_groups, fuzzy_idf,
-                            fuzzy_presence, lim_rows, order_keys,
-                            prepare_batch_arrays, split_batch_by_lanes,
-                            stable_top_k, stage1_epilogue)
+                            fuzzy_presence, lim_rows, prepare_batch_arrays,
+                            split_batch_by_lanes, stable_top_k,
+                            stage1_epilogue)
 from ..ops import stage1_lanes as lanes
 from ..ops.coverage_kernel import _upload, coverage_fusion_batch
 
@@ -102,22 +102,37 @@ def _distinct(mesh) -> list:
 
 def _stable_merge(all_s, all_i, k: int):
     """Global top-k of gathered per-shard (score, global id) rows by
-    (score desc, id asc): one top-k over packed (score, id) keys, so the
-    boundary tie class at the k-th score is filled with its lowest ids,
-    as the reference's merge fills it and as ``stable_top_k`` does on one
-    device (membership nests across depths). Each shard's local selection
-    is stable, so the global boundary class's lowest ids are always among
-    the gathered rows."""
+    (score desc, id asc), the boundary tie class at the k-th score filled
+    with its lowest ids, as the reference's merge fills it and as
+    ``stable_top_k`` does on one device (membership nests across depths).
+    Each shard's local selection is stable, so the global boundary class's
+    lowest ids are always among the gathered rows.
+
+    The rows hold the shards' lists in shard order, and the shards hold
+    rising id windows in that order, each list in (score desc, id asc)
+    order: so among equal scores a row's positions rise with the ids, and
+    ``stable_top_k`` over the scores (score desc, position asc; the kernel
+    on a card) picks the merge's entries in the merge's order. The ids are
+    gathered after."""
     one_d = all_s.dim() == 1
     if one_d:
         all_s, all_i = all_s[None, :], all_i[None, :]
-    pos = torch.topk(order_keys(all_s, all_i), k, dim=1, largest=True,
-                     sorted=True).indices
-    out_s = torch.gather(all_s, 1, pos)
-    out_i = torch.gather(all_i, 1, pos)
+    out_s, pos = stable_top_k(all_s.contiguous(), k)
+    out_i = torch.gather(all_i, 1, pos.long())
     if one_d:
         return out_s[0], out_i[0]
     return out_s, out_i
+
+
+def _lim_merge(lows, k2: int, pad: int):
+    """The ``k2`` lowest ids of gathered per-shard LIM rows, ascending
+    (``pad`` after them). Each shard's row holds its ids ascending, then
+    pads, and the shards' windows rise in shard order: so a row's ids are
+    ascending in position once the pads are skipped, and the first ``k2``
+    non-pad positions (``stable_top_k`` of a 1/0 flag: flags desc, position
+    asc) are the lowest ids; pads fill the rest."""
+    _, pos = stable_top_k((lows < pad).to(torch.float32), k2)
+    return torch.gather(lows, 1, pos.long())
 
 
 class _Replica(NamedTuple):
@@ -299,8 +314,7 @@ class ShardedDeviceIndex:
                 fz=fz[dev] if n_grp else None).long().to(dev0))
         k2 = min(LIM_K, k)
         lim = torch.full((n_q, k), pad, dtype=torch.int64, device=dev0)
-        lim[:, :k2] = torch.topk(torch.cat(lows, dim=1), k2, dim=1,
-                                 largest=False, sorted=True).values
+        lim[:, :k2] = _lim_merge(torch.cat(lows, dim=1), k2, pad)
 
         scores = g_s.cpu().numpy()
         ids = g_i.to(torch.int32).cpu().numpy()

@@ -38,17 +38,23 @@ runtime.set_device("cpu")
 torch.set_num_threads(1)
 
 
+def _source(name, val) -> str:
+    """The module that ``val`` (bound to ``name`` in a test module) comes
+    from, for the classes, functions and modules that a suite imports
+    ("" for everything else)."""
+    if isinstance(val, types.ModuleType):
+        return val.__name__
+    if callable(val) and not name.startswith("test"):
+        return getattr(val, "__module__", None) or ""
+    return ""
+
+
 def _bind_to_port(mp, mod):
     """Rebind every class, function and module that ``mod`` imported from
     the reference package to the port's object of the same module and
     name."""
     for name, val in list(vars(mod).items()):
-        if isinstance(val, types.ModuleType):
-            src = val.__name__
-        elif callable(val) and not name.startswith("test"):
-            src = getattr(val, "__module__", None) or ""
-        else:
-            continue
+        src = _source(name, val)
         if not src.startswith("infidex_tpu."):
             continue
         pmod = importlib.import_module("infidex_tpu_torch"
@@ -87,8 +93,12 @@ def reference_suites_on_port(*suites, sys_modules=None):
 
     def names_are_bound():
         for mod in suites:
-            assert mod.SearchEngine is port.SearchEngine, mod.__name__
-            assert mod.Query is port.Query, mod.__name__
+            for name, val in vars(mod).items():
+                assert not _source(name, val).startswith("infidex_tpu."), (
+                    mod.__name__, name)
+            if hasattr(mod, "SearchEngine"):
+                assert mod.SearchEngine is port.SearchEngine, mod.__name__
+                assert mod.Query is port.Query, mod.__name__
 
     return bound, names_are_bound
 

@@ -96,6 +96,31 @@ def test_stable_merge_matches_reference_on_heavy_ties(seed, n_shards, k):
     assert torch.equal(got_i.int(), one_i) and torch.equal(got_s, one_s)
 
 
+@pytest.mark.parametrize("seed,n_shards,k2", [(0, 4, 256), (1, 8, 5),
+                                              (2, 3, 40), (3, 2, 1)])
+def test_lim_merge_equals_the_lowest_ids(seed, n_shards, k2):
+    """Per-shard LIM rows (ascending ids of rising windows, then pads),
+    merged: the ``k2`` lowest of their ids ascending, as the reference's
+    ``top_k`` of the negated ids takes them; rows with no ids, with fewer
+    than ``k2`` and with ids in one shard only."""
+    rng = np.random.default_rng(seed)
+    size, n_q, pad = 500, 7, 1 << 24
+    rows = []
+    for s in range(n_shards):
+        m = rng.random((n_q, size)) < rng.choice([0.0, 0.002, 0.05, 0.5],
+                                                  (n_q, 1))
+        m[0] = False
+        if s:
+            m[1] = False
+        ids = np.where(m, np.arange(size)[None, :] + s * size, pad)
+        rows.append(np.sort(ids, axis=1)[:, :k2])
+    lows = torch.from_numpy(np.concatenate(rows, axis=1).astype(np.int64))
+    want = torch.topk(lows, k2, dim=1, largest=False, sorted=True).values
+    got = sharding._lim_merge(lows, k2, pad)
+    assert torch.equal(got, want)
+    assert (got[0] == pad).all() and (got[1] < pad).sum() <= k2
+
+
 # --- Stage 1 ---------------------------------------------------------------
 
 WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf",

@@ -67,7 +67,9 @@ _HOST = r"""
 // The four kernels' C interfaces on the host: every block in turn (rows
 // last to first: the card runs blocks in no order, and a row that wrote
 // past its end into the next one shows), each block's shared memory
-// filled with 0x7f bytes first.
+// filled with 0x7f bytes first; the top-k and LIM kernels' clusters as
+// their blocks' Shared in an array, each cluster step run by the blocks in
+// turn.
 template <class S>
 static S* fresh(std::vector<unsigned char>& buf) {
   buf.assign(sizeof(S), 0x7f);
@@ -102,14 +104,23 @@ extern "C" int stage1_epilogue(float* scores, float* cnt, long long width,
   return 0;
 }
 extern "C" int stage1_topk(const float* scores, long long width, int n_rows,
-    int k, int shared_keys, unsigned long long* scratch,
-    long long scratch_cols, float* out_scores, int* out_ids, void*) {
-  if (!topk::args_ok(width, k, shared_keys, scratch, scratch_cols)) return 1;
-  const topk::Args a{scores, width, n_rows, k, shared_keys, scratch,
-                     scratch_cols, out_scores, out_ids};
-  std::vector<unsigned char> buf;
+    int k, int shared_keys, int run_keys, int slices,
+    unsigned long long* scratch, long long scratch_cols, float* out_scores,
+    int* out_ids, void*) {
+  if (!topk::args_ok(width, k, shared_keys, run_keys, slices, scratch,
+                     scratch_cols)) {
+    return 1;
+  }
+  const topk::Args a{scores, width, n_rows, k, shared_keys, run_keys,
+                     slices, scratch, scratch_cols, out_scores, out_ids};
+  std::vector<std::vector<unsigned char>> bufs(slices);
+  std::vector<topk::Shared*> sh(slices);
   for (int r = n_rows - 1; r >= 0; --r) {
-    topk::row(a, r, fresh<topk::Shared>(buf));
+    for (int b = 0; b < slices; ++b) {
+      bufs[b].assign(topk::shared_bytes(run_keys), 0x7f);
+      sh[b] = reinterpret_cast<topk::Shared*>(bufs[b].data());
+    }
+    topk::row(a, r, topk::Cl(slices, sh.data()));
   }
   return 0;
 }
@@ -117,11 +128,17 @@ extern "C" int stage1_lim(const float* cnt, long long width, int n_q,
     const float* live, const float* thresh, const unsigned* bits,
     long long words, const float* fidf, const int* q_off, const int* q_grp,
     int has_fz, long long window, int k2, int k_out, int id_offset, int pad,
-    int* out, void*) {
+    int* out, int slices, int list_keys, int* scratch, void*) {
+  if (!lim::args_ok(slices, list_keys, k2, scratch)) return 1;
   const lim::Args a{cnt, width, n_q, live, thresh, bits, words, fidf, q_off,
-                    q_grp, has_fz, window, k2, k_out, id_offset, pad, out};
-  std::vector<unsigned char> buf;
-  for (int q = n_q - 1; q >= 0; --q) lim::row(a, q, fresh<lim::Shared>(buf));
+                    q_grp, has_fz, window, k2, k_out, id_offset, pad, out,
+                    slices, list_keys, scratch};
+  std::vector<std::vector<unsigned char>> bufs(slices);
+  std::vector<lim::Shared*> sh(slices);
+  for (int q = n_q - 1; q >= 0; --q) {
+    for (int b = 0; b < slices; ++b) sh[b] = fresh<lim::Shared>(bufs[b]);
+    lim::row(a, q, lim::Cl(slices, sh.data()));
+  }
   return 0;
 }
 """
@@ -502,6 +519,177 @@ def test_lim_cell_with_more_groups_than_it_stages(host):
         assert (want[0] < width).sum() > 0 and (want[2] < width).sum() == 0
 
 
+# ---- the cluster cells: several blocks a row ----------------------------
+
+
+#: blocks a row the cluster cells run with: one (a pool row's), and slices
+#: down to the kernels' alignment, the last ones empty at these widths
+SLICES = (1, 2, 4, 16)
+#: (shared_keys, run_keys) of the top-k cluster cells: the kernel's own;
+#: every run in shared memory; small runs, so that most go to the global
+#: scratch and the select takes its later rounds; one key (every path but
+#: the first round's shortcut, every run of two keys or more in scratch)
+TOPK_SIZES = ((_kernels.TOPK_SHARED_KEYS, _kernels.TOPK_RUN_KEYS),
+              (_kernels.TOPK_SHARED_KEYS, 16384), (512, 64), (1, 1))
+
+
+def cluster_rows(seed, width=WIDTH):
+    """``topk_rows`` and three more: all zeros, all one score, and a tie
+    class of every seventh id (1.0) under 20 ids of 2.0, so that the
+    boundary class's lowest ids at k 500 lie in several slices."""
+    rng = np.random.default_rng(seed)
+    extra = np.zeros((3, width), np.float32)
+    extra[1] = 1.5
+    extra[2, ::7] = 1.0
+    extra[2, rng.choice(width, 20, replace=False)] = 2.0
+    return torch.cat([topk_rows(seed, width), torch.from_numpy(extra)])
+
+
+def assert_topk(rows, k, lib, **kw):
+    want_s, want_i = port_dev.stable_top_k_plain(rows.cpu(), k)
+    got_s, got_i = _kernels.stage1_topk(rows.contiguous(), k, lib=lib, **kw)
+    assert torch.equal(got_i.cpu(), want_i), (k, kw)
+    assert torch.equal(bits_of(got_s.cpu()), bits_of(want_s)), (k, kw)
+
+
+@pytest.mark.parametrize("sizes", TOPK_SIZES)
+@pytest.mark.parametrize("slices", SLICES)
+def test_topk_cluster_cell_equals_plain(host, slices, sizes):
+    """Every depth, on rows that reach every select path, a boundary class
+    across slices, zero and one-score rows."""
+    shared_keys, run_keys = sizes
+    rows = cluster_rows(slices)
+    kth = port_dev.stable_top_k_plain(rows[-1:], 500)[0][0, -1]
+    assert float(kth) == 1.0      # the tie row's k-th is in its tie class
+    for k in DEPTHS:
+        assert_topk(rows, k, host, shared_keys=shared_keys,
+                    run_keys=run_keys, slices=slices)
+
+
+@pytest.mark.parametrize("n_rows", [1, 2, 128])
+def test_topk_cluster_cell_row_counts(host, n_rows):
+    """1, 2 and 128 rows of 3,000 ids (a mix of ``cluster_rows``' kinds)
+    at 1, 4 and 16 slices."""
+    rows = torch.cat([cluster_rows(100 + i, 3000) for i in range(11)])
+    rows = rows[np.random.default_rng(n_rows).permutation(
+        rows.shape[0])[:n_rows]]
+    for slices in (1, 4, 16):
+        for k in (1, 500, 3000):
+            assert_topk(rows, k, host, slices=slices)
+        assert_topk(rows, 2000, host, shared_keys=512, run_keys=64,
+                    slices=slices)
+
+
+def test_topk_cluster_cell_slices_agree(host):
+    """Any slice count gives the same ids and scores, and so does each
+    shared-memory size, on a scattered score matrix."""
+    g = Group(4)
+    rows = g.scores * g.index.live_mask
+    want = _kernels.stage1_topk(rows, 300, slices=1, lib=host)
+    for slices in SLICES[1:]:
+        for shared_keys, run_keys in TOPK_SIZES:
+            got = _kernels.stage1_topk(rows, 300, shared_keys=shared_keys,
+                                       run_keys=run_keys, slices=slices,
+                                       lib=host)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(bits_of(got[0]), bits_of(want[0]))
+
+
+def test_row_slices_and_scratch_columns():
+    def host(c):
+        return _kernels.resident_clusters("stage1_topk", torch.device("cpu"),
+                                          c)
+
+    assert host(2) == 132
+    assert [_kernels.row_slices(1, w, host) for w in
+            (1, 16384, 32767, 32768, 65536, 1 << 18, 1 << 20)] == [
+                1, 1, 1, 2, 4, 16, 16]
+    assert [_kernels.row_slices(n, 1 << 20, host) for n in
+            (1, 8, 16, 17, 32, 64, 128, 133)] == [16, 16, 16, 8, 8, 4, 2, 1]
+    assert _kernels.topk_scratch_cols(500) == 2 * 16384
+    assert _kernels.topk_scratch_cols(500, run_keys=16384) == 0
+    assert _kernels.topk_scratch_cols(20000, run_keys=16384) == 40000
+    with pytest.raises(ValueError):
+        _kernels.stage1_topk(torch.zeros(2, 10), 3, slices=3)
+    with pytest.raises(ValueError):
+        _kernels.stage1_lim(torch.zeros(2, 10), torch.ones(10),
+                            torch.ones(2), None, None, None, None, 5, 5, 10,
+                            0, 1 << 24, slices=32)
+
+
+def lim_case(seed, width=20000, k2=256):
+    """LIM rows of a class cnt >= 2 (live all ones but a few): the k2-th
+    member in the first slice (a dense class), in the last slice (members
+    only in the last 3 % of the window), in a middle slice (members of
+    every slice), in none (fewer than k2 members: pads), no member at all,
+    and a zero threshold (no class)."""
+    rng = np.random.default_rng(seed)
+    cnt = np.zeros((6, width), np.float32)
+    cnt[0] = rng.integers(1, 3, width)
+    tail = width - width * 3 // 100
+    cnt[1, tail:] = 2 + (rng.random(width - tail) < 0.5)
+    cnt[2, ::31] = 2.0
+    cnt[3, rng.choice(width, k2 // 3, replace=False)] = 3.0
+    cnt[5] = 2.0
+    live = np.ones(width, np.float32)
+    live[rng.choice(width, width // 50, replace=False)] = 0.0
+    thresh = np.array([2, 2, 2, 2, 2, 0], np.float32)
+    return (torch.from_numpy(cnt), torch.from_numpy(live),
+            torch.from_numpy(thresh))
+
+
+@pytest.mark.parametrize("list_keys", [_kernels.LIM_LIST_KEYS, 8])
+@pytest.mark.parametrize("slices", SLICES)
+def test_lim_cluster_cell_equals_plain(host, slices, list_keys):
+    cnt, live, thresh = lim_case(slices)
+    n = cnt.shape[1]
+    want = port_dev.lim_rows_plain(cnt, live, thresh, None, 300, 256, n, 0,
+                                   1 << 24)
+    members = (want < n).sum(dim=1).tolist()
+    assert members[:3] == [256] * 3 and 0 < members[3] < 256
+    assert members[4:] == [0, 0]
+    assert want[1, 255] >= n - n * 3 // 100 and want[0, 255] < 1024
+    for k_out, k2, window, offset in ((300, 256, n, 0), (256, 256, n, 7),
+                                      (40, 40, 12345, 0), (300, 256, 900, 3)):
+        want = port_dev.lim_rows_plain(cnt, live, thresh, None, k_out, k2,
+                                       window, offset, 1 << 24)
+        got = _kernels.stage1_lim(cnt, live, thresh, None, None, None, None,
+                                  k_out, k2, window, offset, 1 << 24,
+                                  slices=slices, list_keys=list_keys,
+                                  lib=host)
+        assert torch.equal(got, want), (k_out, k2, window, offset)
+
+
+@pytest.mark.parametrize("slices", SLICES[1:])
+@pytest.mark.parametrize("seed,fuzzy", [(0, True), (1, False), (2, True)])
+def test_lim_cluster_cell_with_fuzzy_groups(host, seed, fuzzy, slices):
+    """The fuzzy cover through a cluster: the random index's group, its
+    presence bitset and the groups' idf, at k2 256 and 37."""
+    g = Group(seed)
+    di, fz = g.index, g.fz
+    lv = g.filtered
+    bits = presence = fidf = fz_any = None
+    if fuzzy:
+        presence, df = port_dev.fuzzy_presence(di.postings_docs, fz,
+                                               g.n_grp, 0, di.n_pad)
+        bits, _ = _kernels.stage1_fuzzy(di.postings_docs, fz.d_starts,
+                                        fz.d_group, fz.d_cum, fz.n_lanes,
+                                        g.n_grp, 0, di.n_pad, lib=host)
+        fidf = g.fidf(df, float(df.max()) - 1)
+    _, c, m, fz_any = port_dev.stage1_epilogue_plain(
+        g.scores.clone(), g.cnt.clone(), lv, presence, fidf, di.doc_fac,
+        fz.grp_query if fuzzy else None)
+    for k_out, k2 in ((500, 256), (37, 37)):
+        want = port_dev.lim_rows_plain(c, lv, m, fz_any, k_out, k2, di.n_pad,
+                                       0, 1 << 24)
+        got = _kernels.stage1_lim(c, lv, m, bits, fidf,
+                                  fz.d_qoff if fuzzy else None,
+                                  fz.d_qgrp if fuzzy else None, k_out, k2,
+                                  di.n_pad, 0, 1 << 24, slices=slices,
+                                  lib=host)
+        assert torch.equal(got, want)
+
+
 # ---- the whole Stage 1 through the kernel route -----------------------
 
 
@@ -542,6 +730,52 @@ def test_search_batch_kernel_route_equals_plain(request, monkeypatch, sharded,
                    for _, _, lim in got)
 
 
+@pytest.mark.parametrize("sharded", [False, True])
+def test_search_batch_kernel_route_with_clusters_equals_plain(
+        request, monkeypatch, sharded):
+    """Slices of 128 ids, so that the top-k and LIM cells run clusters of
+    up to 16 blocks a row on these small indexes."""
+    plain = _search(7, 300, sharded)
+    request.getfixturevalue("kernel_route")
+    monkeypatch.setattr(_kernels, "SLICE_IDS", 128)
+    assert _kernels.row_slices(5, 1024, lambda c: 264 // c) == 8
+    got = _search(7, 300, sharded)
+    _assert_same(plain, got, exact_scores=True)
+
+
+@pytest.mark.parametrize("seed,n_shards,k", [(0, 4, 10), (1, 8, 300),
+                                             (2, 3, 25)])
+def test_sharded_merges_through_the_kernel_route(kernel_route, seed, n_shards,
+                                                 k):
+    """The shards' score and LIM merges through the top-k cell: the score
+    merge equals one top-k over packed (score, id) keys (the merge's
+    definition) and the whole rows' top-k, on tie-heavy rows; the LIM
+    merge the lowest ids."""
+    rng = np.random.default_rng(seed)
+    size, n_q = 400, 5
+    scores = torch.from_numpy(rng.choice(
+        np.float32([0.0, -0.0, 1.5, 2.0, 3.25]), (n_q, n_shards * size)))
+    k_local = min(k, size)
+    tops = [port_dev.stable_top_k(scores[:, s * size:(s + 1) * size],
+                                  k_local) for s in range(n_shards)]
+    all_s = torch.cat([t[0] for t in tops], 1)
+    all_i = torch.cat([t[1].long() + s * size for s, t in enumerate(tops)],
+                      1)
+    got_s, got_i = sharding._stable_merge(all_s, all_i, k)
+    pos = torch.topk(port_dev.order_keys(all_s, all_i), k, dim=1).indices
+    assert torch.equal(got_i, torch.gather(all_i, 1, pos))
+    assert torch.equal(bits_of(got_s), bits_of(torch.gather(all_s, 1, pos)))
+    one_s, one_i = port_dev.stable_top_k_plain(scores, k)
+    assert torch.equal(got_i.int(), one_i)
+    pad = 1 << 24
+    lows = torch.where(all_s > 1.0, all_i, pad)
+    lows = torch.cat([torch.sort(lows[:, s * k_local:(s + 1) * k_local],
+                                 dim=1).values for s in range(n_shards)], 1)
+    k2 = min(256, k)
+    assert torch.equal(sharding._lim_merge(lows, k2, pad), torch.topk(
+        lows, k2, dim=1, largest=False, sorted=True).values)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_search_batch_with_fuzzy_groups_matches_reference(seed):
     built, qs = fuzzy_index(seed)
@@ -568,6 +802,40 @@ def test_topk_kernel_equals_plain(cuda, seed, shared_keys):
     got = port_dev.stable_top_k(rows[3].to(cuda), 37)
     want = port_dev.stable_top_k_plain(rows[3], 37)
     assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", TOPK_SIZES)
+@pytest.mark.parametrize("slices", SLICES)
+def test_topk_cluster_kernel_equals_plain(cuda, slices, sizes):
+    shared_keys, run_keys = sizes
+    rows = cluster_rows(slices)
+    for k in DEPTHS:
+        assert_topk(rows.to(cuda), k, None, shared_keys=shared_keys,
+                    run_keys=run_keys, slices=slices)
+    for n_rows in (1, 2, 128):
+        many = torch.cat([cluster_rows(100 + i, 3000) for i in range(11)])
+        many = many[:n_rows].to(cuda)
+        for k in (1, 500, 3000):
+            assert_topk(many, k, None, shared_keys=shared_keys,
+                        run_keys=run_keys, slices=slices)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("list_keys", [_kernels.LIM_LIST_KEYS, 8])
+@pytest.mark.parametrize("slices", SLICES)
+def test_lim_cluster_kernel_equals_plain(cuda, slices, list_keys):
+    cnt, live, thresh = lim_case(slices)
+    n = cnt.shape[1]
+    for k_out, k2, window, offset in ((300, 256, n, 0), (256, 256, n, 7),
+                                      (40, 40, 12345, 0), (300, 256, 900, 3)):
+        want = port_dev.lim_rows_plain(cnt, live, thresh, None, k_out, k2,
+                                       window, offset, 1 << 24)
+        got = _kernels.stage1_lim(cnt.to(cuda), live.to(cuda),
+                                  thresh.to(cuda), None, None, None, None,
+                                  k_out, k2, window, offset, 1 << 24,
+                                  slices=slices, list_keys=list_keys)
+        assert torch.equal(got.cpu(), want), (k_out, k2, window, offset)
 
 
 @pytest.mark.gpu
