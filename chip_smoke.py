@@ -27,11 +27,12 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      matchers), the fake-LCS kernel and the fusion kernel (CoverageScorer,
      fusion signals, FusionScorer and the pack), each against its plain
      version on the first coverage block of every shape of a bench batch
-     and of the long-title batches: every output equal (f32 bit for bit),
-     two identical runs, one launch per call (and, for all but the pair
-     kernel, the launch's blocks, threads a block, candidates a warp,
-     registers and shared memory, as the profiler's trace recorded
-     them), the kernel's device time
+     and of the long-title batches (the pair kernel per set of query
+     tokens and for the block's two sets in one launch, as the main path
+     calls it): every output equal (f32 bit for bit), two identical runs,
+     one launch per call, the launch's blocks, threads a block (candidates
+     a warp), registers and shared memory, as the profiler's trace
+     recorded them, the kernel's device time
      (torch.profiler, one session per kernel and block) and its
      CUDA-event time per back-to-back call beside the bound and one run of
      the plain version in each of two turns. Then the four Stage-1
@@ -57,8 +58,8 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
   4. Main path: ``search_batch`` on two batches of 128 bench queries and
      ``search_many`` over 256, with the kernels' launch counts reset just
      before and read just after; the lane kernel must have launched, the
-     gather, cascade, fake-LCS and fusion kernels once and the pair
-     kernel twice per coverage block (so on every other path that serves
+     gather, pair, cascade, fake-LCS and fusion kernels once per coverage
+     block (so on every other path that serves
      batches below: long titles, large vocabulary, segments, pool scoring
      and sharded, whose [3, C] layout has no fake-LCS), and the epilogue's
      pass, top-k and LIM kernels once per Stage-1 group (per shard on the
@@ -236,6 +237,23 @@ def device_ms_each(torch, fns, kernel: str, reps: int,
     return out
 
 
+def device_total_ms(torch, fn, reps: int):
+    """(mean device ms, mean kernels) of all the kernels one call of ``fn``
+    (run before) launches, from a torch.profiler session of ``reps``
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in events) / reps / 1e3,
+            len(events) / reps)
+
+
 def traced_launches(prof, kernel: str, reps: int) -> list:
     """The launch of each group of ``reps`` kernel events whose name
     contains ``kernel`` in a finished torch.profiler session, in launch
@@ -287,11 +305,15 @@ INT8_PEAK = 1979e12
 #: int32 outside the tensor cores: an SM has half as many int32 lanes as
 #: f32 lanes, and the f32 figure counts a fused multiply-add as two
 INT32_PEAK = F32_PEAK / 4
-#: integer operations the pair kernel's bound counts: per band cell of a
-#: sweep step (compare, two adds, three mins, the validity select, the
-#: clamp), per live cell for the five rescues, and per live cell for the
-#: four position masks and the relation bits read from them
-EDIT_OPS_BAND, EDIT_OPS_FIXED, PAIR_OPS_FIXED = 8, 120, 80
+#: integer operations the pair kernel's bound counts: per live cell for
+#: the five rescues and for the relation bits read from the position
+#: masks; per doc char of a live cell, besides one compare per query char,
+#: for the position masks and the "contains" automaton, and with distances
+#: for one step of the bit-parallel Levenshtein. The band count, kept
+#: beside it: per band cell of a sweep step (compare, two adds, three mins,
+#: the validity select, the clamp) in place of the bit-parallel step
+EDIT_OPS_FIXED, PAIR_OPS_FIXED = 120, 80
+PAIR_OPS_DOC_CHAR, LEV_OPS_DOC_CHAR, EDIT_OPS_BAND = 4, 15, 8
 #: integer operations the cascade's bound counts per real (query token, doc
 #: token) pair: each of the matchers' passes loads the pair's word, tests
 #: its bits and compares two lengths
@@ -486,20 +508,23 @@ def kernel_phase(torch, eng, queries, _kernels, lanes):
 class BlockSpy:
     """While active, records what the coverage program hands its kernels'
     dispatchers: per shape (Q, L, D) the arguments of the first block's
-    gather, of its pair call with distances, of its relations-only pair
-    call (the fusion signals' query tokens), of its cascade, fake-LCS and
-    fusion calls, and how many blocks ran per shape."""
+    gather, of its pair-block call, split as the pair kernel's calls for
+    one set of query tokens (``pairs``: the Q tokens, with distances;
+    ``fpairs``: the fusion signals' tokens, relations only, keyed by their
+    own count), of its cascade, fake-LCS and fusion calls, and how many
+    blocks ran per shape."""
 
     def __init__(self, ck):
         self.ck = ck
         self.pairs, self.fpairs, self.cascade, self.blocks = {}, {}, {}, {}
+        self.pair_blocks = {}
         self.lcs, self.fusion, self.gather = {}, {}, {}
         self._block = threading.local()    # the shape of the block running
 
     def __enter__(self):
         ck = self.ck
-        self._orig = (ck.gather_block, ck.coverage_pairs, ck.coverage_cascade,
-                      ck.coverage_lcs, ck.coverage_fusion)
+        self._orig = (ck.gather_block, ck.coverage_pair_block,
+                      ck.coverage_cascade, ck.coverage_lcs, ck.coverage_fusion)
         (orig_gather, orig_pairs, orig_cascade, orig_lcs,
          orig_fusion) = self._orig
 
@@ -508,10 +533,13 @@ class BlockSpy:
                                    args)
             return orig_gather(*args)
 
-        def pairs_spy(*args, distances):
-            shape = (args[0].shape[0], args[0].shape[1], args[3].shape[1])
-            (self.pairs if distances else self.fpairs).setdefault(shape, args)
-            return orig_pairs(*args, distances=distances)
+        def pairs_spy(q_set, fq_set, *doc):
+            shape = (q_set[0].shape[0], q_set[0].shape[1], doc[0].shape[1])
+            self.pair_blocks.setdefault(shape, (q_set, fq_set) + doc)
+            self.pairs.setdefault(shape, tuple(q_set) + doc)
+            self.fpairs.setdefault((fq_set[0].shape[0],) + shape[1:],
+                                   tuple(fq_set) + doc)
+            return orig_pairs(q_set, fq_set, *doc)
 
         def cascade_spy(*args):
             shape = (args[0].shape[0], args[8].shape[1], args[0].shape[1])
@@ -529,13 +557,13 @@ class BlockSpy:
             self.fusion.setdefault(shape, args + (packed_lcs,))
             return orig_fusion(*args, packed_lcs=packed_lcs)
 
-        (ck.gather_block, ck.coverage_pairs, ck.coverage_cascade,
+        (ck.gather_block, ck.coverage_pair_block, ck.coverage_cascade,
          ck.coverage_lcs, ck.coverage_fusion) = (
             gather_spy, pairs_spy, cascade_spy, lcs_spy, fusion_spy)
         return self
 
     def __exit__(self, *exc):
-        (self.ck.gather_block, self.ck.coverage_pairs,
+        (self.ck.gather_block, self.ck.coverage_pair_block,
          self.ck.coverage_cascade, self.ck.coverage_lcs,
          self.ck.coverage_fusion) = self._orig
 
@@ -562,12 +590,12 @@ class BlockCount:
 
 
 def check_per_block(counts, n_blocks: int, what: str, lcs: bool = True):
-    """One gather, cascade and fusion launch and two pair launches per
-    coverage block, and one fake-LCS launch where the layout has it (the
-    sharded [3, C] layout has none)."""
+    """One gather, pair, cascade and fusion launch per coverage block, and
+    one fake-LCS launch where the layout has it (the sharded [3, C] layout
+    has none)."""
     check(n_blocks > 0 and counts["coverage_gather"]
-          == counts["coverage_cascade"] == counts["coverage_fusion"]
-          == n_blocks and counts["coverage_pairs"] == 2 * n_blocks
+          == counts["coverage_pairs"] == counts["coverage_cascade"]
+          == counts["coverage_fusion"] == n_blocks
           and counts["coverage_lcs"] == (n_blocks if lcs else 0),
           f"{what}: {counts} for {n_blocks} coverage blocks")
 
@@ -696,34 +724,49 @@ def long_titles_phase(torch, it, runtime, bench, _kernels):
     return spy, counts
 
 
-def pair_bound(args, distances: bool):
-    """(bytes, integer operations, live cells) the pair words of these
-    inputs need. Bytes: both length tensors and the validity in full, of
+def pair_bound(q_sets, doc, distances):
+    """(bytes, integer operations, live cells, the band count's
+    operations) the pair words of these inputs need: query token sets
+    ``q_sets`` (each chars, reversed chars, lengths) over the doc rows
+    ``doc`` (chars, reversed chars, lengths, validity), ``distances`` a
+    flag per set. Bytes: the length tensors and the validity in full, of
     every word its chars plain and reversed (a word's length says that the
-    rest of its row is zeros, so an empty or absent word costs no chars),
-    and one int32 per cell written. Operations: a cell with two non-empty
-    words builds its masks (PAIR_OPS_FIXED), runs the "contains" automaton
-    over the doc word where that is at least as long (a compare per query
-    char and three more per doc char) and, with distances, sweeps a band of
-    7 over the doc word and a band of 5 over its prefix of q_len + 1 chars
-    and rescues five times (EDIT_OPS_FIXED)."""
-    qc3, _, qlens2, chars_t, _, lens, valid = args
-    n_q, n_l, n_c = qc3.shape
-    n_d = chars_t.shape[1]
-    n_chars = int(qlens2.clamp(0, n_l).sum()) + int(lens.clamp(0, n_l).sum())
-    nbytes = 4 * (qlens2.numel() + lens.numel() + 2 * n_chars
-                  + n_q * n_d * n_c) + valid.numel()
-    ql = qlens2[:, None, :].long()
-    dl = lens[None].long().clamp(max=n_l)
-    live = (ql > 0) & (dl > 0)
-    n_live = int(live.sum())
-    ops = n_live * PAIR_OPS_FIXED \
-        + int((dl * (ql + 3) * (live & (ql <= dl))).sum())
-    if distances:
-        steps = 7 * dl + 5 * dl.minimum(ql + 1)
-        ops += int((steps * live).sum()) * EDIT_OPS_BAND \
-            + n_live * EDIT_OPS_FIXED
-    return nbytes, ops, n_live
+    rest of its row is zeros, so an empty or absent word costs no chars;
+    the doc rows once), and one int32 per cell written. Operations: a cell
+    with two non-empty words compares each of its doc word's stored chars
+    with its query word's (min(q_len, L) each) and runs PAIR_OPS_DOC_CHAR
+    more a doc char (masks, "contains"), LEV_OPS_DOC_CHAR with distances,
+    compares the reversed words over the shorter (min(q_len, d_len, L)),
+    then the relation bits (PAIR_OPS_FIXED) and the rescues
+    (EDIT_OPS_FIXED). The band count (the one-thread-a-cell kernel's
+    algorithm): masks and relations, the "contains" automaton over the doc
+    word where that is at least as long (a compare per query char and
+    three more per doc char) and a band of 7 over the doc word and one of
+    5 over its prefix of q_len + 1 chars (EDIT_OPS_BAND each)."""
+    _, _, lens, valid = doc
+    n_l, n_d, n_c = doc[0].shape
+    dl = lens[None].long()
+    dn = dl.clamp(max=n_l)
+    nbytes = 4 * (lens.numel() + 2 * int(dn.sum())) + valid.numel()
+    ops = ops_band = n_live = 0
+    for (_, _, qlens2), dist in zip(q_sets, distances):
+        ql = qlens2[:, None, :].long()
+        qn = ql.clamp(max=n_l)
+        nbytes += 4 * (qlens2.numel() + 2 * int(qn.sum())
+                       + qlens2.shape[0] * n_d * n_c)
+        live = (ql > 0) & (dl > 0)
+        n = int(live.sum())
+        n_live += n
+        per_char = qn + PAIR_OPS_DOC_CHAR + (LEV_OPS_DOC_CHAR if dist else 0)
+        ops += n * (PAIR_OPS_FIXED + (EDIT_OPS_FIXED if dist else 0)) \
+            + int((live * (dn * per_char + qn.minimum(dn))).sum())
+        ops_band += n * PAIR_OPS_FIXED \
+            + int((dn * (ql + 3) * (live & (ql <= dn))).sum())
+        if dist:
+            steps = 7 * dn + 5 * dn.minimum(ql + 1)
+            ops_band += int((steps * live).sum()) * EDIT_OPS_BAND \
+                + n * EDIT_OPS_FIXED
+    return nbytes, ops, n_live, ops_band
 
 
 def in_turns(torch, plain_fn, kernel_fn, reps: int):
@@ -753,67 +796,94 @@ def kernel_blocks(bench_spy, long_spy, which: str):
 def pair_phase(torch, bench_spy, long_spy, _kernels):
     """The pair kernel against its plain version on real coverage blocks:
     the first block of every shape of a bench batch and of the long-title
-    batches, with distances (the coverage query tokens) and without (the
-    fusion query tokens)."""
+    batches, per set of query tokens (with distances: the coverage query
+    tokens; without: the fusion query tokens) and for both sets in one
+    launch, as the main path calls it ("block")."""
     from infidex_tpu_torch.ops import coverage_kernel as ck
 
     runs = []
-    for which, distances in (("pairs", True), ("fpairs", False)):
+    for which in ("pairs", "fpairs", "pair_blocks"):
         for label, origin, shape, args in kernel_blocks(bench_spy, long_spy,
                                                         which):
-            def kernel_fn(args=args, distances=distances):
-                return ck.coverage_pairs(*args, distances=distances)
+            if which == "pair_blocks":
+                q_set, fq_set, *doc = args
 
-            def plain_fn(args=args, distances=distances):
-                return ck.coverage_pairs_plain(*args, distances)
+                def kernel_fn(args=args):
+                    return ck.coverage_pair_block(*args)
 
+                def plain_fn(args=args):
+                    return ck.coverage_pair_block_plain(*args)
+
+                sets, dists, kind = (q_set, fq_set), (True, False), "block"
+            else:
+                distances = which == "pairs"
+                doc = list(args[3:])
+
+                def kernel_fn(args=args, distances=distances):
+                    return ck.coverage_pairs(*args, distances=distances)
+
+                def plain_fn(args=args, distances=distances):
+                    return ck.coverage_pairs_plain(*args, distances)
+
+                sets, dists = (args[:3],), (distances,)
+                kind = "distances" if distances else "relations"
             plain = plain_fn()
             n0 = _kernels.launch_counts["coverage_pairs"]
             k1, k2 = kernel_fn(), kernel_fn()
             torch.cuda.synchronize()
             check(_kernels.launch_counts["coverage_pairs"] - n0 == 2,
                   "pair kernel phase: not one launch per call")
-            check(k1.dtype == torch.int32 and k1.shape == plain.shape
-                  and torch.equal(k1, plain),
-                  f"pair kernel ({label}, distances {distances}): differs "
-                  f"from the plain version")
-            check(torch.equal(k1, k2),
-                  f"pair kernel ({label}): two runs differ")
-            err = int((k1 - plain).abs().max())
-            del plain, k2
+            outs = [(k1, k2, plain)] if kind != "block" else list(
+                zip(k1, k2, plain))
+            for a, b, want in outs:
+                check(a.dtype == torch.int32 and a.shape == want.shape
+                      and torch.equal(a, want),
+                      f"pair kernel ({label}, {kind}): differs from the "
+                      f"plain version")
+                check(torch.equal(a, b),
+                      f"pair kernel ({label}, {kind}): two runs differ")
+            err = max(int((a - want).abs().max()) for a, _, want in outs)
+            words = [a for a, _, _ in outs]
+            del plain, k2, outs
             ms, plain_ms, times = in_turns(torch, plain_fn, kernel_fn,
                                            reps=20)
-            runs.append((label, origin, shape, args, distances, kernel_fn,
-                         k1, err, ms, plain_ms, times))
-    dev = device_ms_each(torch, [r[5] for r in runs],
-                         "coverage_pairs_kernel", reps=20)
+            runs.append((label, origin, shape, sets, doc, dists, kind,
+                         kernel_fn, words, err, ms, plain_ms, times))
+    launches = []
+    dev = device_ms_each(torch, [r[7] for r in runs],
+                         "coverage_pairs_kernel", reps=20, launches=launches)
     out = {}
-    for (label, origin, shape, args, distances, _, k1, err, ms, plain_ms,
-         times), dev_ms in zip(runs, dev):
-        nbytes, ops, live = pair_bound(args, distances)
+    for (label, origin, shape, sets, doc, dists, kind, _, words, err, ms,
+         plain_ms, times), dev_ms, launch in zip(runs, dev, launches):
+        nbytes, ops, live, ops_band = pair_bound(sets, doc, dists)
         bound = bound_ms(nbytes, ops, INT32_PEAK)
-        n_q, n_l, n_d = shape
-        n_c = args[0].shape[2]
-        related = int(((k1 & 63) != 0).sum())
-        near = int((((k1 >> 16) & 7) <= 1).sum()) if distances else 0
-        log(f"[kernel] pair words, {label}, "
-            f"{'with distances' if distances else 'relations only'} "
-            f"(S {n_q}, L {n_l}, D {n_d}, C {n_c}: {n_q * n_d * n_c} "
-            f"cells, {live} with two non-empty words, {related} with a "
-            f"relation, {near} within distance 1): bit-equal to the "
-            f"plain version, deterministic; kernel {dev_ms:.4f} ms on "
-            f"the device (profiler), {ms:.4f} ms a call back to back "
+        bound_band = bound_ms(nbytes, ops_band, INT32_PEAK)
+        n_l, n_d, n_c = doc[0].shape
+        cells = sum(w.numel() for w in words)
+        related = sum(int(((w & 63) != 0).sum()) for w in words)
+        near = sum(int((((w >> 16) & 7) <= 1).sum())
+                   for w, dist in zip(words, dists) if dist)
+        log(f"[kernel] pair words, {label}, {kind} ("
+            f"{' + '.join(str(q[2].shape[0]) for q in sets)} query tokens, "
+            f"L {n_l}, D {n_d}, C {n_c}: {cells} cells, {live} with two "
+            f"non-empty words, {related} with a relation, {near} within "
+            f"distance 1): bit-equal to the plain version, deterministic; "
+            f"kernel {dev_ms:.4f} ms on the device (profiler; "
+            f"{geometry(launch)}), {ms:.4f} ms a call back to back "
             f"(events: {times['cuda']}), plain {plain_ms:.4f} ms "
             f"({times['plain']}); bound {bound[0]:.4f} ms by {bound[1]} "
             f"({nbytes} B, {ops} integer operations), "
-            f"{bound[0] / dev_ms:.1%} of the device time")
-        check(live > 0 and related > 0 and (near > 0 or not distances),
+            f"{bound[0] / dev_ms:.1%} of the device time; the band count "
+            f"{ops_band} operations: {bound_band[0]:.4f} ms, "
+            f"{bound_band[0] / dev_ms:.1%}")
+        check(live > 0 and related > 0 and (near > 0 or not any(dists)),
               f"pair kernel ({label}): the block exercises nothing")
-        out[f"{label} {'distances' if distances else 'relations'}"] = dict(
+        out[f"{label} {kind}"] = dict(
             max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], bound_bytes=nbytes,
-            bound_ops=ops, origin=origin, shape=list(shape),
-            candidates=n_c, cells=n_q * n_d * n_c, live=live)
+            bound_ops=ops, bound_ms_band_count=bound_band[0],
+            bound_ops_band_count=ops_band, origin=origin, shape=list(shape),
+            candidates=n_c, cells=cells, live=live, launch=launch)
     return out
 
 
@@ -1458,11 +1528,16 @@ EPILOGUE_REPLACES = {
     "stage1_epilogue": "infidex_tpu/index/device.py:466",
     "stage1_topk": "infidex_tpu/index/device.py:150",
     "stage1_lim": "infidex_tpu/index/device.py:202"}
-#: kernel names in the profiler's records (the fuzzy wrapper launches two)
+#: kernel names in the profiler's records
 EPILOGUE_NAMES = {"stage1_fuzzy": "stage1_fuzzy_",
                   "stage1_epilogue": "stage1_epilogue_kernel",
                   "stage1_topk": "stage1_topk_kernel",
                   "stage1_lim": "stage1_lim_kernel"}
+#: epilogue kernels timed with every kernel their wrapper's call launches
+#: (at least how many): the fuzzy kernel's bound counts the bitset
+#: written, and the wrapper's zeroing fill writes it before the kernel ORs
+#: into it
+WHOLE_CALL = {"stage1_fuzzy": 2}
 
 
 def kernel_ms(torch, fn, sub: str, reps: int):
@@ -1489,6 +1564,35 @@ def kernel_ms(torch, fn, sub: str, reps: int):
                 by.setdefault(e.name, []).append(e.time_range.elapsed_us())
         kept = {name: len(v) for name, v in by.items()}
         if by and all(2 * n >= reps for n in kept.values()):
+            return (sum(sum(v) / len(v) for v in by.values()) / 1e3, kept,
+                    "profiler")
+    return cuda_ms(torch, fn, reps, warm=False), kept, "events"
+
+
+def call_ms(torch, fn, n_kernels: int, reps: int):
+    """Device ms of every kernel one call of ``fn`` (run before) launches,
+    at least ``n_kernels`` distinct kernels, from a torch.profiler session
+    of ``reps`` calls: each kernel's mean over the records the session
+    kept, summed. As in ``kernel_ms``, a session that kept fewer kernels,
+    or fewer than half the launches of one, is taken again, up to three
+    sessions, and then the time is the CUDA events'. Returns (ms, records
+    by kernel name, "profiler" or "events")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        kept = {name[:48]: len(v) for name, v in by.items()}
+        if len(by) >= n_kernels and all(2 * len(v) >= reps
+                                        for v in by.values()):
             return (sum(sum(v) / len(v) for v in by.values()) / 1e3, kept,
                     "profiler")
     return cuda_ms(torch, fn, reps, warm=False), kept, "events"
@@ -1540,7 +1644,9 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str,
     Stage-1 group of ``preps``: presence bits and df, the pass's scores,
     counts and row maxima, the top-k at each depth of ``ks`` and the LIM
     rows at the first, each bit-equal and alike in two runs; then each
-    kernel's device time (torch.profiler) beside its plain version's
+    kernel's device time (torch.profiler; the fuzzy kernel's with its
+    wrapper's zeroing fill, which writes the bitset its bound counts, and
+    alone) beside its plain version's
     (events), in turns, its bound from this group's data, and the library
     call's time where one computes the same (``torch.topk`` over the int64
     keys; the LIM's masked ``torch.topk``). The same for the group's first
@@ -1594,7 +1700,8 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str,
                                             dtype=f32, device=dev),
                            torch.tensor(1_250_000.0, dtype=f32, device=dev))
         q_off, q_grp = fz.d_qoff, fz.d_qgrp
-        # postings read, the term tables, the bitset and df written
+        # postings read, the term tables, the bitset and df written (the
+        # wrapper's zeroing fill writes them, timed with the kernel)
         nbytes = (4 * fz.n_lanes + 12 * fz.starts.size
                   + 4 * bits.numel() + 4 * n_grp)
         runs["stage1_fuzzy"] = (lambda: _kernels.stage1_fuzzy(*fargs),
@@ -1763,27 +1870,36 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str,
             nbytes, f"k {k}, k2 {k2}, {n} rows, "
             f"{_kernels.lim_slices(n, window, dev)} blocks a row")
 
-    # times: the kernel on the device (a profiler session each turn), the
-    # plain version and the library call by events, in turns
+    # times: the kernel on the device (a profiler session each turn; with
+    # the rest of its wrapper's call where WHOLE_CALL names it, and alone
+    # beside that), the plain version and the library call by events, in
+    # turns
     for name, (kernel_fn, plain_fn, lib_fn, nbytes, what) in runs.items():
         base = name.split()[0]
         kernel_fn()
         plain_fn()
-        dev_ms, plain_t, kept = [], [], []
+        dev_ms, plain_t, kept, alone = [], [], [], []
         for route in ("plain", "cuda", "cuda", "plain"):
             if route == "plain":
                 plain_t.append(cuda_ms(torch, plain_fn, reps=1, warm=False))
+                continue
+            if base in WHOLE_CALL:
+                ms, rec, src = call_ms(torch, kernel_fn, WHOLE_CALL[base], 5)
+                alone.append(kernel_ms(torch, kernel_fn,
+                                       EPILOGUE_NAMES[base], 5)[0])
             else:
                 ms, rec, src = kernel_ms(torch, kernel_fn,
                                          EPILOGUE_NAMES[base], 5)
-                dev_ms.append(ms)
-                kept.append(rec if src == "profiler" else "events")
+            dev_ms.append(ms)
+            kept.append(rec if src == "profiler" else f"events, {rec}")
         ms, plain_ms = sum(dev_ms) / 2, sum(plain_t) / 2
         lib_ms = cuda_ms(torch, lib_fn, reps=3) if lib_fn else None
         bound = bound_ms(nbytes, 0, F32_PEAK)
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound[0], bound_by=bound[1], bound_bytes=nbytes,
                    turns=dev_ms, plain_turns=plain_t)
+        if alone:
+            row.update(kernel_alone_ms=sum(alone) / 2, alone_turns=alone)
         parts = name.split()
         if "rows" in parts:
             sub = f"{parts[-1]} rows" + (f", k {parts[1]}"
@@ -1794,8 +1910,12 @@ def epilogue_check(torch, _kernels, dev_index, preps, ks, label: str,
         else:
             out[base].update(row)
         lib = f", library {lib_ms:.4f} ms" if lib_fn else ""
+        whole = (f" with the rest of its wrapper's call (alone "
+                 f"{row['kernel_alone_ms']:.4f} ms: {alone})"
+                 if alone else "")
         log(f"[epilogue] {label}: {name} ({what}): bit-equal to the plain "
-            f"version, deterministic; kernel {ms:.4f} ms on the device "
+            f"version, deterministic; kernel {ms:.4f} ms on the device"
+            f"{whole} "
             f"({dev_ms}; records kept of 5 calls: {kept}), plain "
             f"{plain_ms:.4f} ms ({plain_t}){lib}; bound "
             f"{bound[0]:.4f} ms by {bound[1]} ({nbytes} B), "
@@ -2595,7 +2715,9 @@ def shard_merge_check(torch, _kernels, inputs):
     rows) on the first sharded group's inputs: equal to the merges they
     replace (one ``torch.topk`` over packed (score, id) keys; the lowest
     ids by ``torch.topk``), the top-k kernel's device time, its bound and
-    the time of that ``torch.topk``."""
+    the time of that ``torch.topk``; and, from profiler sessions of their
+    own, the device time of every kernel one merge launches and of every
+    kernel the ``torch.topk`` call launches, side by side."""
     from infidex_tpu_torch.index import device as D
     from infidex_tpu_torch.parallel import sharding
 
@@ -2621,16 +2743,25 @@ def shard_merge_check(torch, _kernels, inputs):
              lambda: torch.topk(lows, k2, dim=1, largest=False, sorted=True),
              4 * n_q * lows.shape[1] + 8 * n_q * k2)):
         fn()
-        ms, kept, src = kernel_ms(torch, fn, "stage1_topk_kernel", 5)
+        ms, kept, src = kernel_ms(torch, fn, "stage1_topk_kernel", 20)
         lib_ms = cuda_ms(torch, lib_fn, reps=3)
+        merge_dev, merge_kernels = device_total_ms(torch, fn, 20)
+        lib_dev, lib_kernels = device_total_ms(torch, lib_fn, 20)
         bound = bound_ms(nbytes, 0, F32_PEAK)
         out[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound[0],
                          bound_by=bound[1], bound_bytes=nbytes,
-                         rows=n_q, width=width, timing=src)
+                         rows=n_q, width=width, timing=src,
+                         merge_device_ms=merge_dev,
+                         merge_kernels=merge_kernels,
+                         library_device_ms=lib_dev,
+                         library_kernels=lib_kernels)
         log(f"[sharded] {name} merge ({n_q} rows of {width}): equal to the "
             f"merge it replaces; top-k kernel {ms:.4f} ms on the device "
-            f"({kept}), torch.topk {lib_ms:.4f} ms; bound {bound[0]:.4f} ms "
-            f"by {bound[1]} ({nbytes} B)")
+            f"({kept}, by {src}), torch.topk {lib_ms:.4f} ms (events); "
+            f"profiler, all kernels a call: the merge {merge_dev:.4f} ms "
+            f"in {merge_kernels:.1f} kernels, torch.topk {lib_dev:.4f} ms "
+            f"in {lib_kernels:.1f}; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({nbytes} B)")
     return out
 
 
@@ -2818,6 +2949,7 @@ def main(argv=None) -> int:
           and torch.get_float32_matmul_precision() == "highest",
           "f32 matmuls must run in full f32")
     build_s = _kernels.build(verbose=True)
+    build_report = _kernels.ptxas_report
     log(f"[setup] kernels built in {build_s:.2f} s "
         f"({_kernels.library_path()})")
     log(f"[setup] native.available = {native.available}")
@@ -2894,7 +3026,7 @@ def main(argv=None) -> int:
         return {p: c[name] / batches[p] for p, c in by_path.items()}
 
     main_cascade = next(k for k, v in ck2.items() if v["origin"] == "bench")
-    main_pairs = main_cascade + " distances"
+    main_pairs = main_cascade + " block"
 
     kernels = [{
         "name": "stage1_scatter_lanes", "route": "cuda",
@@ -2943,7 +3075,9 @@ def main(argv=None) -> int:
         "bound_ms": gk2[main_cascade]["bound_ms"],
         "bound_by": gk2[main_cascade]["bound_by"], "library_ms": None,
         "by_block": gk2}, {
-        # as above, with distances
+        # as above: the block's one launch for both sets of query tokens,
+        # as the main path calls it; its traced launch, and the registers
+        # and spills of each build that ptxas reported
         "name": "coverage_pairs", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/coverage_pairs.cu",
         "replaces": "infidex_tpu/ops/coverage_kernel.py:466",
@@ -2957,6 +3091,9 @@ def main(argv=None) -> int:
         "plain_ms": pk2[main_pairs]["plain_ms"],
         "bound_ms": pk2[main_pairs]["bound_ms"],
         "bound_by": pk2[main_pairs]["bound_by"], "library_ms": None,
+        "launch": pk2[main_pairs]["launch"],
+        "ptxas": _kernels.ptxas_resources(build_report,
+                                          "coverage_pairs_kernel"),
         "by_block": pk2}, {
         "name": "coverage_cascade", "route": "cuda",
         "source": "infidex_tpu_torch/csrc/coverage_cascade.cu",

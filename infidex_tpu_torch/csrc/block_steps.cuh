@@ -106,11 +106,32 @@ GRP_HD void atomic_max(unsigned* p, unsigned v) {
 #endif
 }
 
-GRP_HD void atomic_or(unsigned* p, unsigned v) {
+// *p |= v; returns the word before
+GRP_HD unsigned atomic_or(unsigned* p, unsigned v) {
 #if defined(__CUDA_ARCH__)
-  atomicOr(p, v);
+  return atomicOr(p, v);
 #else
+  const unsigned old = *p;
   *p |= v;
+  return old;
+#endif
+}
+
+// Adds one to counts[key(l)] for each lane l whose key is not negative,
+// the lanes of one key by one atomic add (ints: exact in any order).
+template <class F>
+GRP_HD void count_keys(const Warp& g, int* counts, const F& key) {
+#if defined(__CUDA_ARCH__)
+  const int k = key(g.lane);
+  const unsigned peers = __match_any_sync(g.mask, k);
+  if (k >= 0 && g.lane == __ffs(static_cast<int>(peers)) - 1) {
+    atomicAdd(counts + k, __popc(peers));
+  }
+#else
+  for (int l = 0; l < 32; ++l) {
+    const int k = key(l);
+    if (k >= 0) counts[k] += 1;
+  }
 #endif
 }
 

@@ -1,6 +1,7 @@
 // The pair kernel of the coverage program for Hopper (sm_90a): everything
 // Stage 2 needs about each (query word, doc word) pair of a block of
-// candidates, from one read of the two words' characters, in one launch.
+// candidates, from one read of the two words' characters, in one launch
+// for the coverage block's Q tokens and its fusion (FQ) tokens together.
 //
 // Replaces, in the jitted coverage program, the pairwise word relations
 // (infidex_tpu/ops/coverage_kernel.py:466 _pairwise_primitives and :526
@@ -10,7 +11,7 @@
 // (ops/coverage_kernel.py coverage_pairs_plain), whose [S, L, D, C]
 // equality tensors and [W, S, D, C] band rows go through device memory.
 //
-// What it computes. For every query token s < S, doc token d < D and
+// What it computes. For every query token s, doc token d < D and
 // candidate c < C, from the candidate-minor tensors
 //   qc, qr  int32 [S, L, C]   the query token's chars, and reversed
 //   ql      int32 [S, C]      its length
@@ -18,143 +19,126 @@
 //   dl      int32 [D, C]      its length
 //   valid   bool  [D, C]      whether the doc token exists
 // one int32 [S, D, C]: six relation bits, the common-prefix length and,
-// in the build with distances, the five Damerau distances in three bits
-// each (edit_distances_cell.cuh has the layout and the cell's arithmetic).
-// All integer: the result equals the plain version bit for bit. The build
-// without distances serves the fusion signals' query tokens, which use
-// none.
+// for the Q tokens, the five Damerau distances in three bits each
+// (edit_distances_cell.cuh has the layout and the arithmetic). All
+// integer: the result equals the plain version bit for bit. The FQ tokens
+// (relations only) are further query slots of the same launch.
 //
-// Design, against what held the earlier edit-distance kernel back (one
-// thread per cell, five int32 outputs per cell, its time that of the warps
-// holding a live cell):
-//   * one packed word per pair is written, not seven tensors: 4 bytes a
-//     cell in place of 20 for the distances alone;
-//   * most cells are dead (a word is empty: S and D are padded widths) and
-//     need no chars: each thread settles its own cell if it is dead (a
-//     build of the cell code whose words and masks are constants, folded
-//     to a few operations on the two lengths; a coalesced store); the
-//     live cells of a block's 256 consecutive cells
-//     are compacted (ballot, prefix over the warps) into a list in shared
-//     memory, and the first n_live threads take one each, so that the live
-//     cells fill whole warps instead of sharing theirs with dead ones;
-//   * a thread keeps both words' chars (2 L registers), the band row and
-//     four position masks in registers; all loops over chars and band are
-//     unrolled for L = 12 and L = 24, so every register index is static.
+// Design (edit_distances_cell.cuh, pairs::block), against what held the
+// earlier one-thread-a-cell kernel back (a block of 256 consecutive
+// cells held about one live cell a warp, as C is the minor axis; every
+// live cell compared L x L chars for "contains" and again for its masks,
+// and swept twelve band cells of about ten operations a doc char):
+//   * a block takes a tile of T candidates (a power of two up to 64; fewer
+//     where the card would get fewer than kBlocksPerSm blocks a
+//     multiprocessor, or shared memory would pass 64 KB) and copies their
+//     rows into shared memory with cp.async: lengths first, then only the
+//     chars inside each word;
+//   * cells with an empty word get their word in closed form while the
+//     chars are in flight; the others are listed (a ballot and one shared atomic a
+//     warp) and dealt to the threads, so warps run full of live cells;
+//   * a live cell compares each doc char with the query word's chars once
+//     (min(ql, L) or L / 2 compares) and feeds that equality mask to the
+//     position masks, the Shift-And "contains" and a bit-parallel
+//     Levenshtein (about fifteen operations a doc char), which gives every
+//     distance the band sweeps gave, bit for bit.
 //
-// What bounds it. Integer operations: a live cell runs up to L x (7 + 5)
-// band updates of about ten operations each and up to L x L compares for
-// "contains", against 4 L + 3 values read (chars re-read across s and d
-// come from L2) and one int written. A sweep ends at the doc word's length,
-// so the work follows the words, not L.
+// What bounds it. Integer operations of the live cells (about 2 L + 30 a
+// doc char with distances, then five rescues) against the words' chars
+// read once and one int written a cell.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "edit_distances_cell.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-template <int L, bool DIST>
-__global__ void __launch_bounds__(kThreads)
-coverage_pairs_kernel(const int* __restrict__ qc, const int* __restrict__ qr,
-                      const int* __restrict__ ql, const int* __restrict__ dc,
-                      const int* __restrict__ dr, const int* __restrict__ dl,
-                      const unsigned char* __restrict__ valid, int n_s,
-                      int n_d, int n_c, int* __restrict__ out) {
-  __shared__ int warp_live[kWarps];
-  __shared__ unsigned char live_list[kThreads];
-  const long long base = static_cast<long long>(blockIdx.x) * kThreads;
-  const long long n = static_cast<long long>(n_s) * n_d * n_c;
-  const long long plane = static_cast<long long>(n_d) * n_c;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  // own cell: dead or live?
-  const long long own = base + threadIdx.x;
-  bool live = false;
-  if (own < n) {
-    const int c = static_cast<int>(own % n_c);
-    const int d = static_cast<int>((own / n_c) % n_d);
-    const int s = static_cast<int>(own / plane);
-    live = ql[static_cast<long long>(s) * n_c + c] > 0 &&
-           dl[static_cast<long long>(d) * n_c + c] > 0;
-  }
-  const unsigned ballot = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) warp_live[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, n_live = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) before += warp_live[w];
-    n_live += warp_live[w];
-  }
-  if (live) {
-    live_list[before + __popc(ballot & ((1u << lane) - 1u))] =
-        static_cast<unsigned char>(threadIdx.x);
-  }
-  __syncthreads();
-
-  // a dead own cell: no chars, the arithmetic folded for empty words
-  if (own < n && !live) {
-    const int c = static_cast<int>(own % n_c);
-    const int d = static_cast<int>((own / n_c) % n_d);
-    const int s = static_cast<int>(own / plane);
-    const long long d_at = static_cast<long long>(d) * n_c + c;
-    out[own] = edit::pair_word<L, DIST, false>(
-        nullptr, nullptr, 0, nullptr, nullptr, 0,
-        ql[static_cast<long long>(s) * n_c + c], dl[d_at], valid[d_at] != 0);
-  }
-  // one cell of the live list
-  if (static_cast<int>(threadIdx.x) < n_live) {
-    const long long i = base + live_list[threadIdx.x];
-    const int c = static_cast<int>(i % n_c);
-    const int d = static_cast<int>((i / n_c) % n_d);
-    const int s = static_cast<int>(i / plane);
-    const long long q_at = static_cast<long long>(s) * L * n_c + c;
-    const long long d_at = static_cast<long long>(d) * n_c + c;
-    out[i] = edit::pair_word<L, DIST, true>(
-        qc + q_at, qr + q_at, n_c, dc + d_at, dr + d_at, plane,
-        ql[static_cast<long long>(s) * n_c + c], dl[d_at], valid[d_at] != 0);
-  }
+template <int L>
+__global__ void __launch_bounds__(pairs::kThreads)
+coverage_pairs_kernel(const pairs::Args a, int lt) {
+  extern __shared__ int smem[];
+  pairs::block<L>(a, lt, static_cast<int>(blockIdx.x) << lt,
+                  static_cast<int>(threadIdx.x), pairs::kThreads, smem);
 }
 
-template <int L, bool DIST>
-void launch(const int* qc, const int* qr, const int* ql, const int* dc,
-            const int* dr, const int* dl, const unsigned char* valid, int n_s,
-            int n_d, int n_c, int* out, unsigned blocks, cudaStream_t s) {
-  coverage_pairs_kernel<L, DIST><<<blocks, kThreads, 0, s>>>(
-      qc, qr, ql, dc, dr, dl, valid, n_s, n_d, n_c, out);
+template <int L>
+int launch(const pairs::Args& a, cudaStream_t s) {
+  static std::atomic<unsigned long long> allowed{0ull};   // a bit per device
+  int device = 0, n_sm = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                device);
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int n_slots = a.n_s + a.n_f;
+  const int t = pairs::tile_candidates(L, n_slots, a.n_d, a.n_c,
+                                       pairs::kBlocksPerSm * n_sm);
+  if (t == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int lt = 0;
+  while ((1 << lt) < t) ++lt;
+  const int bytes = 4 * pairs::layout(L, n_slots, a.n_d, t).ints;
+  // above 48 KB a kernel must be allowed its dynamic shared memory first,
+  // once per device (host threads launch concurrently: the bits are
+  // atomic, and setting the attribute twice does no harm)
+  if (bytes > 48 * 1024 &&
+      (device >= 64 ||
+       !((allowed.load(std::memory_order_acquire) >> device) & 1ull))) {
+    rc = cudaFuncSetAttribute(coverage_pairs_kernel<L>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              pairs::kSmemMax);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (device < 64) {
+      allowed.fetch_or(1ull << device, std::memory_order_release);
+    }
+  }
+  const unsigned blocks = static_cast<unsigned>((a.n_c + t - 1) / t);
+  coverage_pairs_kernel<L><<<blocks, pairs::kThreads, bytes, s>>>(a, lt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run(const pairs::Args& a, int n_l, void* stream) {
+  if (a.n_c <= 0 || a.n_d <= 0 || a.n_s + a.n_f <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_l == 12) return launch<12>(a, s);
+  if (n_l == 24) return launch<24>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The [n_s, n_d, n_c] pair words of one coverage block on `stream`, with
-// the distances' bits when `with_distances` is not 0. n_l (chars per token)
-// must be 12 or 24. Returns cudaGetLastError() of the launch (0 on
-// success), or cudaErrorInvalidValue for another n_l.
+// The [n_s, n_d, n_c] pair words of one set of query tokens on `stream`,
+// with the distances' bits when `with_distances` is not 0. n_l (chars per
+// token) must be 12 or 24, lengths at most n_l (the distances hold up to
+// 31, as the plain version's). Returns cudaGetLastError() of the launch (0
+// on success), or cudaErrorInvalidValue for another n_l or widths whose
+// tile does not fit shared memory.
 int coverage_pairs(const int* qc, const int* qr, const int* ql, const int* dc,
                    const int* dr, const int* dl, const unsigned char* valid,
                    int n_s, int n_l, int n_d, int n_c, int with_distances,
                    int* out, void* stream) {
-  const long long n = static_cast<long long>(n_s) * n_d * n_c;
-  if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_l == 12 && with_distances) {
-    launch<12, true>(qc, qr, ql, dc, dr, dl, valid, n_s, n_d, n_c, out, blocks, s);
-  } else if (n_l == 12) {
-    launch<12, false>(qc, qr, ql, dc, dr, dl, valid, n_s, n_d, n_c, out, blocks, s);
-  } else if (n_l == 24 && with_distances) {
-    launch<24, true>(qc, qr, ql, dc, dr, dl, valid, n_s, n_d, n_c, out, blocks, s);
-  } else if (n_l == 24) {
-    launch<24, false>(qc, qr, ql, dc, dr, dl, valid, n_s, n_d, n_c, out, blocks, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const pairs::Args a{qc, qr, ql, nullptr, nullptr, nullptr, dc, dr, dl,
+                      valid, n_s, 0, n_d, n_c, with_distances != 0, out,
+                      nullptr};
+  return run(a, n_l, stream);
+}
+
+// One coverage block's pair words in one launch: [n_s, n_d, n_c] of the Q
+// tokens with distances into `out`, [n_f, n_d, n_c] of the fusion tokens
+// without into `fout`, over the same doc tokens. As coverage_pairs
+// otherwise.
+int coverage_pair_block(const int* qc, const int* qr, const int* ql, int n_s,
+                        const int* fqc, const int* fqr, const int* fql,
+                        int n_f, const int* dc, const int* dr, const int* dl,
+                        const unsigned char* valid, int n_l, int n_d,
+                        int n_c, int* out, int* fout, void* stream) {
+  const pairs::Args a{qc, qr, ql, fqc, fqr, fql, dc, dr, dl, valid,
+                      n_s, n_f, n_d, n_c, 1, out, fout};
+  return run(a, n_l, stream);
 }
 
 }  // extern "C"

@@ -6,11 +6,13 @@
 // A fuzzy query token is a group of matched vocabulary terms; its
 // presence row has bit d set where doc doc_lo + d carries a posting of
 // any of the group's terms (the union of their posting docs, a doc in
-// several of them once), and its df is the row's popcount. Terms are
-// rows of the flat lane space [0, n_lanes): term t owns lanes
-// [cum[t], cum[t + 1]), lane i reads posting starts[t] + i - cum[t].
+// several of them once), and its df is the row's popcount: here the count
+// of the lanes that turned a bit of the row on. Terms are rows of the
+// flat lane space [0, n_lanes): term t owns lanes [cum[t], cum[t + 1]),
+// lane i reads posting starts[t] + i - cum[t].
 // Lanes whose doc lies outside [doc_lo, doc_hi) are dropped. Presence is
-// an integer OR and df an integer count: exact in any order.
+// an integer OR and df an integer count: exact in any order (exactly one
+// lane finds a bit clear).
 
 #pragma once
 
@@ -29,7 +31,7 @@ struct Args {
   unsigned* bits;             // [n_grp, words], zero on entry
   long long words;            // ceil((doc_hi - doc_lo) / 32)
   int n_grp;
-  int* df;                    // [n_grp]
+  int* df;                    // [n_grp], zero on entry
 };
 
 // The term that owns lane i: the last t with cum[t] <= i (terms of no
@@ -43,43 +45,28 @@ GRP_HD int term_of(const Args& a, long long i) {
   return lo;
 }
 
-// Lane i's posting into its group's presence row.
-GRP_HD void mark(const Args& a, long long i) {
+// Lane i's posting into its group's presence row: the group where this
+// lane turned its bit on (the old word atomic_or returns had it clear),
+// else -1 (a lane past n_lanes, a doc outside the window, a bit already
+// set).
+GRP_HD int mark(const Args& a, long long i) {
+  if (i >= a.n_lanes) return -1;
   const int t = term_of(a, i);
   const long long p = static_cast<long long>(a.starts[t]) + (i - a.cum[t]);
   const long long local =
       static_cast<long long>(a.postings_docs[p]) - a.doc_lo;
-  if (local < 0 || local >= a.doc_hi - a.doc_lo) return;
-  blk::atomic_or(a.bits + a.group[t] * a.words + (local >> 5),
-                 1u << (local & 31));
+  if (local < 0 || local >= a.doc_hi - a.doc_lo) return -1;
+  const unsigned bit = 1u << (local & 31);
+  const unsigned old =
+      blk::atomic_or(a.bits + a.group[t] * a.words + (local >> 5), bit);
+  return (old & bit) != 0u ? -1 : a.group[t];
 }
 
-constexpr int kDfThreads = 256;
-constexpr int kDfWarps = kDfThreads / 32;
-
-struct DfShared {
-  int part[kDfWarps];
-};
-
-// Group g's df: the popcount of its row (a block of kDfThreads).
-GRP_HD void row_df(const Args& a, int g, DfShared* sh) {
-  const unsigned* row = a.bits + g * a.words;
-  blk::step(kDfWarps, [&](const blk::Warp& w, int wi) {
-    const int s = blk::sum_int(w, [&](int l) {
-      int n = 0;
-      for (long long i = wi * 32 + l; i < a.words; i += kDfThreads) {
-        n += blk::popc(row[i]);
-      }
-      return n;
-    });
-    if (grp::leader(w)) sh->part[wi] = s;
-  });
-  blk::step(kDfWarps, [&](const blk::Warp& w, int wi) {
-    if (wi != 0 || !grp::leader(w)) return;
-    int n = 0;
-    for (int v = 0; v < kDfWarps; ++v) n += sh->part[v];
-    a.df[g] = n;
-  });
+// Lanes i0 .. i0 + 31 of a warp: their bits, and one df added per bit
+// turned on (each doc of a group's row counted once, by whichever lane
+// set its bit).
+GRP_HD void mark_warp(const blk::Warp& w, const Args& a, long long i0) {
+  blk::count_keys(w, a.df, [&](int l) { return mark(a, i0 + l); });
 }
 
 }  // namespace fuzzy

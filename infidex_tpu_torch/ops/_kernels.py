@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,6 +62,9 @@ PAIR_DIST_SHIFTS = (16, 19, 22, 25, 28)
 
 _lib = None
 _lock = threading.Lock()
+#: what ``nvcc -Xptxas=-v`` reported when ``build(verbose=True)`` compiled
+#: the library ("" otherwise)
+ptxas_report = ""
 
 
 def reset_launch_counts() -> None:
@@ -108,6 +112,8 @@ def bind(lib):
             ("pool_score", [p, p, p, p, p, i, i, i, p, ctypes.c_longlong, p,
                             p, p, p, p]),
             ("coverage_pairs", [p, p, p, p, p, p, p, i, i, i, i, i, p, p]),
+            ("coverage_pair_block", [p, p, p, i, p, p, p, i, p, p, p, p, i,
+                                     i, i, p, p, p]),
             ("coverage_gather", [p] * 3 + [i] * 2 + [p] * 5 + [i] * 2
              + [p] * 5 + [i] * 2 + [p] * 3 + [i] + [p] * 2 + [i] * 3
              + [p] * 18),
@@ -132,8 +138,9 @@ def bind(lib):
 
 def build(verbose: bool = False) -> float:
     """Compile the kernels if needed and load them; returns the seconds
-    spent (0.0 when already loaded)."""
-    global _lib
+    spent (0.0 when already loaded). ``verbose``: a compile also prints
+    ptxas's resources and keeps them in ``ptxas_report``."""
+    global _lib, ptxas_report
     with _lock:
         if _lib is not None:
             return 0.0
@@ -150,11 +157,43 @@ def build(verbose: bool = False) -> float:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                    f"{res.stdout}\n{res.stderr}")
             if verbose:
-                print(res.stdout + res.stderr, flush=True)
+                ptxas_report = res.stdout + res.stderr
+                print(ptxas_report, flush=True)
             os.replace(tmp, so)
         lib = bind(ctypes.CDLL(so))
         _lib = lib
         return time.perf_counter() - t0
+
+
+def ptxas_resources(report: str, *kernels) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    whose name contains one of ``kernels`` in an ``nvcc -Xptxas=-v``
+    report, by kernel and template arguments (e.g.
+    ``coverage_pairs_kernel<12>``)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = None
+            for kernel in kernels:
+                if kernel in m.group(1):
+                    args = re.findall(r"Li(\d+)E", m.group(1))
+                    name = kernel + (f"<{', '.join(args)}>" if args else "")
+            continue
+        if name is None:
+            continue
+        row = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            row.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            row["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            row["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def _check(name: str, t: torch.Tensor, dtype, dev) -> None:
@@ -447,49 +486,83 @@ def coverage_gather(tables, queries, text_ids, qsel, L: int, D: int):
     return (*outs, chars_t[0])
 
 
+def _pair_dims(name: str, q_sets, chars_t, chars_rev_t, lens, valid):
+    """(L, D, C) of a pair-kernel call after checking what the kernel
+    takes: each query set (chars, reversed chars int32 [S, L, C], lengths
+    int32 [S, C]) and the doc rows on one device, contiguous, L one of
+    ``PAIR_CHAR_WIDTHS``. Raises otherwise."""
+    dev = chars_t.device
+    n_l, n_d, n_c = chars_t.shape
+    i32 = torch.int32
+    checks = [("chars_t", chars_t, i32, (n_l, n_d, n_c)),
+              ("chars_rev_t", chars_rev_t, i32, (n_l, n_d, n_c)),
+              ("lens", lens, i32, (n_d, n_c)),
+              ("valid", valid, torch.bool, (n_d, n_c))]
+    for k, (qc3, qr3, qlens2) in enumerate(q_sets):
+        n_s = qc3.shape[0]
+        checks += [(f"qc3[{k}]", qc3, i32, (n_s, n_l, n_c)),
+                   (f"qr3[{k}]", qr3, i32, (n_s, n_l, n_c)),
+                   (f"qlens2[{k}]", qlens2, i32, (n_s, n_c))]
+    for what, t, dt, shape in checks:
+        _check_nd(what, t, dt, shape, dev)
+    if n_l not in PAIR_CHAR_WIDTHS:
+        raise ValueError(f"{name}: {n_l} chars per token, the kernel is "
+                         f"built for {PAIR_CHAR_WIDTHS}")
+    return n_l, n_d, n_c
+
+
 def coverage_pairs(qc3, qr3, qlens2, chars_t, chars_rev_t, lens, valid,
-                   distances: bool):
-    """``csrc/coverage_pairs.cu``: the pair words of one coverage block
-    (see ``ops/coverage_kernel.py coverage_pairs``). ``qc3``/``qr3`` int32
-    [S, L, C], ``qlens2`` int32 [S, C], ``chars_t``/``chars_rev_t`` int32
-    [L, D, C], ``lens`` int32 [D, C], ``valid`` bool [D, C], all
+                   distances: bool, *, lib=None):
+    """``csrc/coverage_pairs.cu``: the pair words of one set of query
+    tokens (see ``ops/coverage_kernel.py coverage_pairs``). ``qc3``/``qr3``
+    int32 [S, L, C], ``qlens2`` int32 [S, C], ``chars_t``/``chars_rev_t``
+    int32 [L, D, C], ``lens`` int32 [D, C], ``valid`` bool [D, C], all
     contiguous, L one of ``PAIR_CHAR_WIDTHS``, lengths at most L. Returns
     int32 [S, D, C]: the relation bits and the common-prefix length, and
-    with ``distances`` the five Damerau distances. One launch."""
+    with ``distances`` the five Damerau distances. One launch, of ``lib``'s
+    kernel when given (an earlier design with this C interface, or a host
+    build, which takes CPU tensors), else the port's."""
     dev = chars_t.device
-    if dev.type != "cuda":
-        raise ValueError("coverage_pairs: CUDA tensors required")
-    n_l, n_d, n_c = chars_t.shape
+    n_l, n_d, n_c = _pair_dims("coverage_pairs", [(qc3, qr3, qlens2)],
+                               chars_t, chars_rev_t, lens, valid)
     n_s = qc3.shape[0]
-    i32 = torch.int32
-    for name, t, dt, shape in (("qc3", qc3, i32, (n_s, n_l, n_c)),
-                               ("qr3", qr3, i32, (n_s, n_l, n_c)),
-                               ("qlens2", qlens2, i32, (n_s, n_c)),
-                               ("chars_t", chars_t, i32, (n_l, n_d, n_c)),
-                               ("chars_rev_t", chars_rev_t, i32,
-                                (n_l, n_d, n_c)),
-                               ("lens", lens, i32, (n_d, n_c)),
-                               ("valid", valid, torch.bool, (n_d, n_c))):
-        _check_nd(name, t, dt, shape, dev)
-    if n_l not in PAIR_CHAR_WIDTHS:
-        raise ValueError(f"coverage_pairs: {n_l} chars per token, the "
-                         f"kernel is built for {PAIR_CHAR_WIDTHS}")
-    out = torch.empty((n_s, n_d, n_c), dtype=i32, device=dev)
+    out = torch.empty((n_s, n_d, n_c), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    build()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib.coverage_pairs(
-            qc3.data_ptr(), qr3.data_ptr(), qlens2.data_ptr(),
-            chars_t.data_ptr(), chars_rev_t.data_ptr(), lens.data_ptr(),
-            valid.data_ptr(), n_s, n_l, n_d, n_c, int(bool(distances)),
-            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("coverage_pairs launch failed: "
-                           + _lib.stage1_error_string(rc).decode())
-    launch_counts["coverage_pairs"] += 1
+    _run_kernel("coverage_pairs", lib, dev,
+                lambda lb, stream: lb.coverage_pairs(
+                    qc3.data_ptr(), qr3.data_ptr(), qlens2.data_ptr(),
+                    chars_t.data_ptr(), chars_rev_t.data_ptr(),
+                    lens.data_ptr(), valid.data_ptr(), n_s, n_l, n_d, n_c,
+                    int(bool(distances)), out.data_ptr(), stream))
     return out
+
+
+def coverage_pair_block(q_set, fq_set, chars_t, chars_rev_t, lens, valid, *,
+                        lib=None):
+    """``csrc/coverage_pairs.cu``: one coverage block's pair words in one
+    launch, the doc rows read once: ``q_set`` = (``qc3``, ``qr3``,
+    ``qlens2``) of the Q tokens, with distances; ``fq_set`` the same of the
+    fusion tokens, relations only; the doc rows as in ``coverage_pairs``.
+    Returns (int32 [Q, D, C], int32 [FQ, D, C]), each equal to its
+    ``coverage_pairs`` call. ``lib`` as in ``coverage_pairs``."""
+    dev = chars_t.device
+    n_l, n_d, n_c = _pair_dims("coverage_pair_block", [q_set, fq_set],
+                               chars_t, chars_rev_t, lens, valid)
+    (qc3, qr3, qlens2), (fqc3, fqr3, fqlens2) = q_set, fq_set
+    n_s, n_f = qc3.shape[0], fqc3.shape[0]
+    out = torch.empty((n_s, n_d, n_c), dtype=torch.int32, device=dev)
+    fout = torch.empty((n_f, n_d, n_c), dtype=torch.int32, device=dev)
+    if out.numel() + fout.numel() == 0:
+        return out, fout
+    _run_kernel("coverage_pairs", lib, dev,
+                lambda lb, stream: lb.coverage_pair_block(
+                    qc3.data_ptr(), qr3.data_ptr(), qlens2.data_ptr(), n_s,
+                    fqc3.data_ptr(), fqr3.data_ptr(), fqlens2.data_ptr(), n_f,
+                    chars_t.data_ptr(), chars_rev_t.data_ptr(),
+                    lens.data_ptr(), valid.data_ptr(), n_l, n_d, n_c,
+                    out.data_ptr(), fout.data_ptr(), stream))
+    return out, fout
 
 
 def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
@@ -724,7 +797,7 @@ SLICE_IDS = 16384
 HOST_BLOCKS = 264
 
 
-def _stage1_run(name: str, lib, dev, call) -> None:
+def _run_kernel(name: str, lib, dev, call) -> None:
     """``call(lib, stream)`` on ``lib`` (default: the port's library, which
     needs CUDA tensors); raises on a non-zero code, counts the port's
     launches."""
@@ -774,8 +847,8 @@ def stage1_fuzzy(postings_docs, starts, group, cum, n_lanes: int,
     (``cum[T] = n_lanes``), ``postings_docs`` int32, all contiguous, every
     posting read inside it. Returns (bits int32 [n_grp, ceil(width / 32)],
     bit d of a row for doc doc_lo + d; df int32 [n_grp], each row's
-    popcount). One call launches the mark and count passes and counts one
-    launch."""
+    popcount). One launch: the lane that turns a bit on adds one to its
+    group's df."""
     dev = postings_docs.device
     i32 = torch.int32
     for name, t in (("postings_docs", postings_docs), ("starts", starts),
@@ -788,11 +861,13 @@ def stage1_fuzzy(postings_docs, starts, group, cum, n_lanes: int,
         raise ValueError(f"stage1_fuzzy: bad window [{doc_lo}, {doc_hi}) "
                          f"or {n_grp} groups")
     words = -(-(doc_hi - doc_lo) // 32)
-    bits = torch.zeros((n_grp, words), dtype=i32, device=dev)
-    df = torch.empty(n_grp, dtype=i32, device=dev)
+    # the bitset and the df counters zeroed together, one fill
+    zeroed = torch.zeros(n_grp * (words + 1), dtype=i32, device=dev)
+    bits = zeroed[:n_grp * words].view(n_grp, words)
+    df = zeroed[n_grp * words:]
     if n_grp == 0:
         return bits, df
-    _stage1_run("stage1_fuzzy", lib, dev, lambda lb, stream: lb.stage1_fuzzy(
+    _run_kernel("stage1_fuzzy", lib, dev, lambda lb, stream: lb.stage1_fuzzy(
         starts.data_ptr(), group.data_ptr(), cum.data_ptr(), n_terms,
         int(n_lanes), postings_docs.data_ptr(), int(doc_lo), int(doc_hi),
         bits.data_ptr(), words, n_grp, df.data_ptr(), stream))
@@ -828,7 +903,7 @@ def stage1_epilogue(scores, cnt, live, bits, fidf, doc_fac, q_off, q_grp,
         raise ValueError(f"stage1_epilogue: {n_q} rows, at most 65535")
     rowmax = torch.zeros(n_q, dtype=torch.int32, device=dev)
     if n_q and width:
-        _stage1_run("stage1_epilogue", lib, dev,
+        _run_kernel("stage1_epilogue", lib, dev,
                     lambda lb, stream: lb.stage1_epilogue(
                         scores.data_ptr(), cnt.data_ptr(), width, n_q,
                         live.data_ptr(), ptrs[0], words, ptrs[1],
@@ -945,7 +1020,7 @@ def stage1_topk(scores, k: int, *, shared_keys: int = TOPK_SHARED_KEYS,
     cols = topk_scratch_cols(k, shared_keys, run_keys)
     scratch = (torch.empty((n_rows, cols), dtype=torch.int64, device=dev)
                if cols else None)
-    _stage1_run("stage1_topk", lib, dev, lambda lb, stream: lb.stage1_topk(
+    _run_kernel("stage1_topk", lib, dev, lambda lb, stream: lb.stage1_topk(
         scores.data_ptr(), width, n_rows, k, shared_keys, run_keys, slices,
         scratch.data_ptr() if cols else None, cols, out_s.data_ptr(),
         out_i.data_ptr(), stream))
@@ -993,7 +1068,7 @@ def stage1_lim(cnt, live, thresh, bits, fidf, q_off, q_grp, k_out: int,
     if n_q and k_out:
         scratch = (torch.empty((n_q, slices, k2), dtype=torch.int32,
                                device=dev) if k2 > list_keys else None)
-        _stage1_run("stage1_lim", lib, dev, lambda lb, stream: lb.stage1_lim(
+        _run_kernel("stage1_lim", lib, dev, lambda lb, stream: lb.stage1_lim(
             cnt.data_ptr(), width, n_q, live.data_ptr(), thresh.data_ptr(),
             ptrs[0], words, ptrs[1], ptrs[2], ptrs[3], has_fz, int(window),
             int(k2), int(k_out), int(id_offset), int(pad), out.data_ptr(),

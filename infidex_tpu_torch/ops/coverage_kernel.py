@@ -17,14 +17,15 @@ capacities and the packed output are the reference's; each
 float reduction over the query-token axis is an explicit sequential sum,
 so the result does not depend on a library's reduction order.
 
-After the gather, a block is five launches of four kernels on the card:
-``coverage_pairs`` (the word relations and edit distances of every (query
-token, doc token) pair, one packed int32 each; once more, relations only,
-for the fusion query tokens), ``coverage_cascade`` (step 1's four
+After the gather, a block is four launches on the card:
+``coverage_pair_block`` (the word relations and edit distances of every
+(query token, doc token) pair, one packed int32 each, and in the same
+launch the relations alone for the fusion query tokens),
+``coverage_cascade`` (step 1's four
 matchers over those words), ``coverage_lcs`` (the fake-LCS) and
 ``coverage_fusion`` (steps 2-4 and the pack). For CPU tensors each takes
-its plain PyTorch version (``coverage_pairs_plain``,
-``coverage_cascade_plain``, ``coverage_lcs_plain``,
+its plain PyTorch version (``coverage_pairs_plain``, twice for the pair
+block, ``coverage_cascade_plain``, ``coverage_lcs_plain``,
 ``coverage_fusion_plain``), with the same results bit for bit.
 
 Eager PyTorch materialises what XLA fused: the largest intermediates of
@@ -586,6 +587,29 @@ def coverage_pairs(q_chars, q_rev, q_lens, chars_t, chars_rev_t, lens, valid,
                                    chars_rev_t, lens, valid, distances)
 
 
+def coverage_pair_block(q_set, fq_set, chars_t, chars_rev_t, lens, valid):
+    """A coverage block's two sets of pair words over the same doc
+    tokens: ``coverage_pairs`` of the Q tokens ``q_set`` = (``q_chars``,
+    ``q_rev``, ``q_lens``) with distances and of the fusion tokens
+    ``fq_set`` without. Returns the two int32 [*, D, C] tensors. CUDA
+    tensors launch the kernel once for both; CPU tensors take the plain
+    version (``coverage_pair_block_plain``)."""
+    if chars_t.device.type == "cpu":
+        return coverage_pair_block_plain(q_set, fq_set, chars_t, chars_rev_t,
+                                         lens, valid)
+    return _kernels.coverage_pair_block(q_set, fq_set, chars_t, chars_rev_t,
+                                        lens, valid)
+
+
+def coverage_pair_block_plain(q_set, fq_set, chars_t, chars_rev_t, lens,
+                              valid):
+    """Plain PyTorch version of ``coverage_pair_block``: the plain
+    version of ``coverage_pairs`` for each set, on any device."""
+    doc = (chars_t, chars_rev_t, lens, valid)
+    return (coverage_pairs_plain(*q_set, *doc, True),
+            coverage_pairs_plain(*fq_set, *doc, False))
+
+
 def coverage_cascade(pairs, lens, offsets, codes, first_char, tok_count,
                      qlens2, qsorted2, qc3, qcount, config):
     """The Stage-2 matcher cascade over one block of candidates: whole
@@ -1054,18 +1078,16 @@ def _coverage_block(tables, queries, lcs, text_ids, qsel, lcs_vals,
     g = gather_block(tables, queries, text_ids, qsel, L, D)
 
     # One pair word per (query token, doc token): the six relations, the
-    # common-prefix length and the five edit distances; then the matcher
-    # cascade over them; then the relations of the fusion (unfiltered)
-    # query tokens; then the fake-LCS and the scorer + fusion program. One
+    # common-prefix length and the five edit distances, and the relations
+    # of the fusion (unfiltered) query tokens; then the matcher cascade
+    # over them; then the fake-LCS and the scorer + fusion program. One
     # kernel launch each on the card.
-    pairs = coverage_pairs(g.qc3, g.qr3, g.qlens2, g.chars_t, g.chars_rev_t,
-                           g.lens, g.all_valid, distances=True)
+    pairs, fq_pairs = coverage_pair_block(
+        (g.qc3, g.qr3, g.qlens2), (g.fqc3, g.fqr3, g.fqlens2), g.chars_t,
+        g.chars_rev_t, g.lens, g.all_valid)
     state = coverage_cascade(pairs, g.lens, g.offsets, g.codes, g.first_char,
                              g.tok_count, g.qlens2, g.qsorted2, g.qc3,
                              g.qcount, config)
-    fq_pairs = coverage_pairs(g.fqc3, g.fqr3, g.fqlens2, g.chars_t,
-                              g.chars_rev_t, g.lens, g.all_valid,
-                              distances=False)
     if lcs is not None:
         lcs_vals = coverage_lcs(*lcs, text_ids, qsel, g.text_len, lcs_vals)
     doc = (g.chars_t, g.chars_rev_t, g.lens, g.adj_ws, g.all_valid,

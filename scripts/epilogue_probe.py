@@ -2,7 +2,9 @@
 a design, and today's kernels beside an earlier design, in turns.
 
     python3 scripts/epilogue_probe.py [--bench] [--sweep] [--trace]
-                                      [--old-csrc DIR] [--out DIR]
+                                      [--old-csrc DIR]
+                                      [--old-fuzzy-csrc DIR] [--vocab]
+                                      [--out DIR]
 
 Without flags: builds the kernels and times (torch.profiler, five calls)
 the top-k at k 500 and 20,000 on 128 rows of 2^20 scores with 15,000
@@ -34,6 +36,17 @@ infidex_tpu_torch/csrc | tar -x --strip-components=2 -C build/old_epi``
 ``.git``). The script builds them with the port's nvcc flags and, on each
 input, requires the old and today's kernels to give the same bits as the
 plain version, then times them in turns (old, new, new, old).
+
+``--old-fuzzy-csrc DIR`` holds an earlier ``stage1_fuzzy.cu`` with its
+headers and today's C interface (commit 051d756: a mark launch, then a
+block a group popcounting its row). On the bench group (``--bench``), on
+each of its four shard windows and, with ``--vocab``, on the first group
+of a batch of chip_smoke.py's large-vocabulary corpus (1,000,000 titles,
+indexed here), both kernels go through the port's wrapper (``lib=``):
+their bitsets and df must equal each other and the plain version; then
+each call's device time, the wrapper's zeroing fill included (all its
+kernels, torch.profiler), and the fuzzy kernels' alone, in turns (old,
+new, new, old).
 
 Prints the card's name and power limit first, then a line a measurement;
 writes every number to ``--out``/epilogue_probe.json.
@@ -72,6 +85,81 @@ def build_old(src_dir: str, out_dir: str):
                                i, i, p, p]
     lib.stage1_topk.restype = lib.stage1_lim.restype = i
     return lib
+
+
+def build_old_fuzzy(src_dir: str, out_dir: str):
+    """An earlier fuzzy-presence kernel with today's C interface."""
+    from infidex_tpu_torch.ops import _kernels
+
+    so = os.path.join(out_dir, "libinfidex_fuzzy_old.so")
+    os.makedirs(out_dir, exist_ok=True)
+    res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so,
+                          os.path.join(src_dir, "stage1_fuzzy.cu")],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+    return _kernels.bind(ctypes.CDLL(so))
+
+
+def fuzzy_ab(torch, cs, D, _kernels, old, groups: dict, reps: int) -> dict:
+    """The earlier fuzzy kernel (``old``) beside today's on each group of
+    ``groups`` (label -> (device index, fuzzy tables, group count)) over
+    its whole window and its four shard windows: equal bits and df, equal
+    to the plain version; then device ms with the zeroing and of the
+    kernels alone, in turns."""
+    out = {}
+    for label, (di, fz, n_grp) in groups.items():
+        n_pad = di.n_pad
+        edges = [n_pad * k // 4 for k in range(5)]
+        for lo, hi in [(0, n_pad)] + list(zip(edges, edges[1:])):
+            args = (di.postings_docs, fz.d_starts, fz.d_group, fz.d_cum,
+                    fz.n_lanes, n_grp, lo, hi)
+            fns = {"old": lambda a=args: _kernels.stage1_fuzzy(*a, lib=old),
+                   "new": lambda a=args: _kernels.stage1_fuzzy(*a)}
+            got = {k: fn() for k, fn in fns.items()}
+            dense = D.fuzzy_presence_plain(di.postings_docs, fz.starts,
+                                           fz.lens, fz.group, n_grp, lo, hi)
+            inside, past = cs.unpack_bits(torch, got["new"][0], hi - lo)
+            row = dict(
+                window=[lo, hi], groups=n_grp, lanes=int(fz.n_lanes),
+                old_equal=all(torch.equal(a, b) for a, b in
+                              zip(got["old"], got["new"])),
+                equal=bool(torch.equal(inside, dense > 0) and not past
+                           and torch.equal(got["new"][1],
+                                           dense.sum(dim=1).int())),
+                df_sum=int(got["new"][1].sum()))
+            del got, dense, inside
+            with_zeroing = {"old": [], "new": []}
+            kernel_alone = {"old": [], "new": []}
+            for k in ("old", "new", "new", "old"):
+                with_zeroing[k].append(cs.device_total_ms(torch, fns[k],
+                                                           reps)[0])
+                kernel_alone[k].append(cs.kernel_ms(torch, fns[k],
+                                                    "stage1_fuzzy_", reps)[0])
+            row.update(with_zeroing_ms=with_zeroing,
+                       kernel_ms=kernel_alone)
+            key = f"{label}, window [{lo}, {hi})"
+            out[key] = row
+            print(f"fuzzy: {key}: {json.dumps(row)}", flush=True)
+    return dict(bit_equal=all(r["old_equal"] and r["equal"]
+                              for r in out.values()), by_window=out)
+
+
+def vocab_group(torch, cs):
+    """The first Stage-1 group of a 128-query batch of chip_smoke.py's
+    large-vocabulary corpus: (device index, fuzzy tables, group count)."""
+    import bench
+    import infidex_tpu_torch as it
+
+    t0 = time.perf_counter()
+    titles, _ = cs.big_vocab_corpus(bench, cs.N_DOCS)
+    queries = bench.make_queries(titles, cs.BATCH)
+    m = cs.build_engine(it, titles).vector_model
+    print(f"large-vocabulary index of {cs.N_DOCS} docs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    preps = [p for p in map(m.prepare_stage1, queries) if p is not None]
+    _, _, fz, n_grp = cs.stage1_group(torch, m.device, preps)
+    return m.device, fz, n_grp
 
 
 def build_trace(out_dir: str):
@@ -258,7 +346,7 @@ def bench_inputs(torch, D, _kernels):
     assert torch.equal(m_k, m_p)
     tables = ((presence, fidf, fz.d_qoff, fz.d_qgrp) if n_grp
               else (None,) * 4)
-    out = {}
+    out = {"fuzzy": (di, fz, n_grp)} if n_grp else {}
     for n in (128, 8, 1):
         out[f"bench group, {n} rows"] = dict(
             scores=s[:n].contiguous(), ks=(500, 20000),
@@ -283,6 +371,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--old-csrc")
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--old-fuzzy-csrc")
+    ap.add_argument("--vocab", action="store_true")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "epilogue_probe"))
     args = ap.parse_args(argv)
@@ -315,8 +405,17 @@ def main(argv=None) -> int:
         return cs.kernel_ms(torch, fn, name, 5)[0]
 
     inputs = synthetic(torch, D)
+    groups = {}
     if args.bench:
         inputs.update(bench_inputs(torch, D, _kernels))
+        if "fuzzy" in inputs:
+            groups["bench group"] = inputs.pop("fuzzy")
+    if args.old_fuzzy_csrc:
+        old_fuzzy = build_old_fuzzy(args.old_fuzzy_csrc, args.out)
+        if args.vocab:
+            groups["large-vocabulary group"] = vocab_group(torch, cs)
+        report["fuzzy"] = fuzzy_ab(torch, cs, D, _kernels, old_fuzzy,
+                                   groups, 20)
     for label, inp in inputs.items():
         s = inp["scores"]
         n_rows, width = s.shape

@@ -18,12 +18,17 @@ kernel (``edit_distances.cu`` and ``edit_distances_cell.cuh`` of commit
 ce4e9c9: one thread per (query token, doc token, candidate), five int32
 tensors out), e.g. ``git archive ce4e9c9 infidex_tpu_torch/csrc |
 tar -x --strip-components=2 -C build/old_edit``; ``--old-cov-csrc`` the
-earlier fake-LCS, fusion and cascade kernels (``coverage_lcs.cu``,
-``coverage_fusion.cu``, ``coverage_cascade.cu`` and their cell headers;
-same C interfaces as today's): of commit 705596b, one thread per
-candidate in all three, e.g. ``git archive 705596b infidex_tpu_torch/csrc
-| tar -x --strip-components=2 -C build/old_cov``, or of commit 22ca07e,
-where only the cascade was still one thread per candidate.
+earlier pair, fake-LCS, fusion and cascade kernels (``coverage_pairs.cu``,
+``coverage_lcs.cu``, ``coverage_fusion.cu``, ``coverage_cascade.cu`` and
+their cell headers; same C interfaces as today's): of commit 705596b, one
+thread per candidate in the last three, e.g. ``git archive 705596b
+infidex_tpu_torch/csrc | tar -x --strip-components=2 -C build/old_cov``,
+of commit 22ca07e, where only the cascade was still one thread per
+candidate, or of commit 051d756, the pair kernel of one thread a cell
+(two launches a coverage block, band sweeps); a kernel whose sources
+are the same in both directories is skipped. A copy of today's
+``csrc/`` with one setting edited (e.g. the pair kernel's
+``kBlocksPerSm``) times that variant against today's build.
 ``--gather`` times the gather kernel
 (``csrc/coverage_gather.cu``) beside the eager gather it replaces. Only
 the pairs whose directory or flag is given run. The
@@ -47,9 +52,12 @@ library, then, on one card:
   beside it. Besides the times of calls in turns, each kernel's device
   time alone (torch.profiler).
 
-* cov: the same blocks as edit, for the cascade, the fake-LCS and the
-  fusion kernel (``csrc/coverage_cascade.cu``, ``csrc/coverage_lcs.cu``,
-  ``csrc/coverage_fusion.cu``): the earlier design beside today's, both
+* cov: the same blocks as edit, for the pair kernel (each set of query
+  tokens alone, and a block's two sets: the earlier design's two launches
+  beside today's one and today's two), the cascade, the fake-LCS and the
+  fusion kernel (``csrc/coverage_pairs.cu``, ``csrc/coverage_cascade.cu``,
+  ``csrc/coverage_lcs.cu``, ``csrc/coverage_fusion.cu``): the earlier
+  design beside today's, both
   through the port's wrapper (``lib=``), each kernel's device time alone
   (torch.profiler) and its traced launch geometry, in turns as well, and
   the registers, spills and shared memory ``nvcc -Xptxas=-v`` reports for
@@ -72,7 +80,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -104,39 +111,21 @@ def _nvcc_old(src_dir: str, names, out_dir: str, so_name: str,
 
 
 COV_SOURCES = ("coverage_lcs.cu", "coverage_fusion.cu",
-               "coverage_cascade.cu")
+               "coverage_cascade.cu", "coverage_pairs.cu")
 COV_KERNELS = ("coverage_lcs_kernel", "coverage_fusion_kernel",
-               "coverage_cascade_kernel", "coverage_gather_kernel")
+               "coverage_cascade_kernel", "coverage_gather_kernel",
+               "coverage_pairs_kernel")
+#: the cell header of each kernel whose name is not the kernel's
+CELL_HEADERS = {"coverage_pairs": "edit_distances_cell.cuh"}
 
 
 def kernel_resources(report: str) -> dict:
     """Registers, spill bytes and static shared memory of each coverage
     kernel in an ``nvcc -Xptxas=-v`` report, by kernel (its template
     arguments, (L, D) or D or L, in the name)."""
-    out, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = None
-            for kernel in COV_KERNELS:
-                if kernel in m.group(1):
-                    args = re.findall(r"Li(\d+)E", m.group(1))
-                    name = kernel + (f"<{', '.join(args)}>" if args else "")
-            continue
-        if name is None:
-            continue
-        row = out.setdefault(name, {})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            row.update(spill_stores=int(m.group(1)),
-                       spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            row["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            row["static_smem"] = int(m.group(1)) if m else 0
-    return out
+    from infidex_tpu_torch.ops import _kernels
+
+    return _kernels.ptxas_resources(report, *COV_KERNELS)
 
 
 def build_old_cov(src_dir: str, out_dir: str):
@@ -166,7 +155,7 @@ def changed(src_dir: str, name: str) -> bool:
     ``src_dir`` and the port's csrc/."""
     from infidex_tpu_torch.ops import _kernels
 
-    for f in (f"{name}.cu", f"{name}_cell.cuh"):
+    for f in (f"{name}.cu", CELL_HEADERS.get(name, f"{name}_cell.cuh")):
         with open(os.path.join(src_dir, f), "rb") as a, \
                 open(os.path.join(_kernels._CSRC, f), "rb") as b:
             if a.read() != b.read():
@@ -186,6 +175,8 @@ def cov_ab(torch, cs, spies, lib, reps: int, src_dir: str) -> dict:
     bench_spy, long_spy = spies
     out = {}
     for name, which, kernel in (
+            ("coverage_pairs", "pairs", "coverage_pairs_kernel"),
+            ("coverage_pairs", "fpairs", "coverage_pairs_kernel"),
             ("coverage_cascade", "cascade", "coverage_cascade_kernel"),
             ("coverage_lcs", "lcs", "coverage_lcs_kernel"),
             ("coverage_fusion", "fusion", "coverage_fusion_kernel")):
@@ -195,8 +186,12 @@ def cov_ab(torch, cs, spies, lib, reps: int, src_dir: str) -> dict:
             continue
         by_block = {}
         wrapper = getattr(_kernels, name)
+        # the pair kernel's calls for one set of query tokens end in their
+        # distances flag
+        flag = ((which == "pairs",) if name == "coverage_pairs" else ())
         for label, _, shape, a in cs.kernel_blocks(bench_spy, long_spy,
                                                    which):
+            a = tuple(a) + flag
             # all through the port's wrapper: the same checks on each side
             fns = {"old": lambda a=a: wrapper(*a, lib=lib),
                    "new": lambda a=a: wrapper(*a)}
@@ -222,25 +217,60 @@ def cov_ab(torch, cs, spies, lib, reps: int, src_dir: str) -> dict:
             print(f"[cov] {name}, {label} (C {n_c}): bit-equal {same}; "
                   f"device ms {device_ms}; events ms {times}; launch "
                   f"{launch}", flush=True)
-        out[name] = by_block
+        out[name if name != "coverage_pairs" else f"{name} {which}"] = \
+            by_block
+    if changed(src_dir, "coverage_pairs"):
+        out["coverage_pair_block"] = pair_block_ab(torch, cs, spies, lib,
+                                                   reps)
     return dict(bit_equal=all(b["bit_equal"] for v in out.values()
                               for b in v.values()), **out)
 
 
-def device_total_ms(torch, fn, reps: int):
-    """(mean device milliseconds, mean kernels) of all the kernels one call
-    of ``fn`` launches (torch.profiler), over ``reps`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def pair_block_ab(torch, cs, spies, lib, reps: int) -> dict:
+    """A coverage block's pair words as the main path asks for them (the
+    Q tokens with distances, the fusion tokens without): the earlier
+    design ("old": one launch where its library has the block entry, else
+    its two launches), today's one launch for both ("new") and today's
+    kernel called twice ("two"), on the first block of every shape: equal
+    words, then the device time of all the kernels a call launches
+    (torch.profiler) and events, in turns old, new, two, two, new,
+    old."""
+    from infidex_tpu_torch.ops import _kernels
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    bench_spy, long_spy = spies
+    out = {}
+    for label, _, shape, a in cs.kernel_blocks(bench_spy, long_spy,
+                                               "pair_blocks"):
+        q_set, fq_set, *doc = a
+        fns = {"old": (
+                   (lambda a=a: _kernels.coverage_pair_block(*a, lib=lib))
+                   if hasattr(lib, "coverage_pair_block") else
+                   (lambda: (
+                       _kernels.coverage_pairs(*q_set, *doc, True, lib=lib),
+                       _kernels.coverage_pairs(*fq_set, *doc, False,
+                                               lib=lib)))),
+               "new": lambda a=a: _kernels.coverage_pair_block(*a),
+               "two": lambda: (_kernels.coverage_pairs(*q_set, *doc, True),
+                               _kernels.coverage_pairs(*fq_set, *doc,
+                                                       False))}
+        results = {k: fn() for k, fn in fns.items()}
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3, \
-        len(events) / reps
+        same = {k: all(torch.equal(x, y) for x, y in zip(r, results["new"]))
+                for k, r in results.items()}
+        order = ["old", "new", "two"]
+        order += order[::-1]
+        device, events = {}, {}
+        for k in order:
+            ms, n = cs.device_total_ms(torch, fns[k], reps)
+            device.setdefault(k, []).append(ms)
+            events.setdefault(k, []).append(cs.cuda_ms(torch, fns[k], reps))
+        n_c = int(doc[0].shape[-1])
+        out[label] = dict(shape=list(shape), candidates=n_c,
+                          bit_equal=all(same.values()), device_ms=device,
+                          ms=events)
+        print(f"[pair block] {label} (C {n_c}): bit-equal {same}; device "
+              f"ms {device}; events ms {events}", flush=True)
+    return out
 
 
 def block_spies(torch, cs, it, bench, runtime, eng, queries):
@@ -276,7 +306,7 @@ def gather_ab(torch, cs, spies, reps: int) -> dict:
         device = {"old": [], "new": []}
         kernels_a_call = {}
         for k in ("old", "new", "new", "old"):
-            ms, n = device_total_ms(torch, fns[k], reps)
+            ms, n = cs.device_total_ms(torch, fns[k], reps)
             device[k].append(ms)
             kernels_a_call[k] = n
         nbytes, _ = cs.gather_bound(a, want)

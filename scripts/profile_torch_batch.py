@@ -1,6 +1,7 @@
 """Where one 128-query batch of the PyTorch port spends its time, on a card.
 
-    python3 scripts/profile_torch_batch.py [--docs N] [--out DIR]
+    python3 scripts/profile_torch_batch.py [--docs N] [--walls N]
+                                           [--old-csrc DIR] [--out DIR]
 
 Indexes bench.py's corpus (1M docs by default) with infidex_tpu_torch on
 CUDA, warms up with two batches, then serves one batch under
@@ -29,7 +30,17 @@ epilogue" serves the Stage-1 epilogue by its plain versions on the card
 tree without them (an earlier commit, unpacked with ``git archive``) runs
 this script too: ``python3 scripts/profile_torch_batch.py --root DIR``
 profiles the package under DIR, so parent and change are measured by the
-same script, in turns.
+same script, in turns. ``--walls N`` then serves N more batches with the
+kernels, no profiler attached, and prints their walls (host clock, each
+ending in a synchronise), so that parent and change compare by more than
+one batch each. With ``--old-csrc DIR`` (an earlier ``csrc/``, e.g.
+``git archive 051d756 infidex_tpu_torch/csrc``), N pairs of batches
+instead: each pair serves one batch with today's pair and fuzzy-presence
+kernels and with DIR's (``coverage_pairs.cu``, ``stage1_fuzzy.cu``, built
+with the port's nvcc flags and called through the same wrappers,
+``lib=``; the pair words as two launches a block, as before the
+one-launch kernel), in turns which goes first: the kernels' effect on
+the wall in one process, on one index, by the pairs' differences.
 """
 
 import argparse
@@ -47,14 +58,17 @@ BATCH = 128
 #: functions whose cProfile rows the summary prints
 WATCH = ("_dispatch_chunk", "coverage_fusion_batch", "_coverage_block",
          "gather_block", "gather_block_plain", "coverage_gather",
-         "coverage_pairs", "coverage_pairs_plain", "coverage_cascade",
+         "coverage_pairs", "coverage_pairs_plain", "coverage_pair_block",
+         "coverage_pair_block_plain", "coverage_cascade",
          "coverage_cascade_plain", "coverage_lcs", "coverage_lcs_plain",
          "coverage_fusion", "coverage_fusion_plain", "_dispatch_group",
          "_collect_group", "_device_collect", "stage1_scatter_lanes",
          "_assemble_prior")
-#: the coverage program's dispatchers, by the name of their kernel
+#: the coverage program's dispatchers, by the name of their kernel (a tree
+#: from before the pair kernel's one launch a block calls
+#: ``coverage_pairs`` in place of ``coverage_pair_block``)
 COVERAGE_KERNELS = {"gather_block": "coverage_gather_kernel",
-                    "coverage_pairs": "coverage_pairs_kernel",
+                    "coverage_pair_block": "coverage_pairs_kernel",
                     "coverage_cascade": "coverage_cascade_kernel",
                     "coverage_lcs": "coverage_lcs_kernel",
                     "coverage_fusion": "coverage_fusion_kernel"}
@@ -78,6 +92,13 @@ def main(argv=None):
                     help="comma-separated turns (default: plain epilogue, "
                          "kernel, kernel, plain epilogue where the package "
                          "has the epilogue kernels, else kernel, kernel)")
+    ap.add_argument("--walls", type=int, default=0,
+                    help="batches served after the profiles, their walls "
+                         "printed")
+    ap.add_argument("--old-csrc", default=None,
+                    help="with --walls N: N pairs of batches, each batch "
+                         "served with today's pair and fuzzy kernels and "
+                         "with DIR's")
     ap.add_argument("--root", default=ROOT,
                     help="the repository whose package is profiled")
     args = ap.parse_args(argv)
@@ -119,15 +140,17 @@ def main(argv=None):
     from infidex_tpu_torch.index import device
     from infidex_tpu_torch.ops import coverage_kernel as ck
 
-    kernels = tuple(getattr(ck, name) for name in COVERAGE_KERNELS)
-    plain = tuple(getattr(ck, name + "_plain") for name in COVERAGE_KERNELS)
+    names = tuple(n if hasattr(ck, n) else "coverage_pairs"
+                  for n in COVERAGE_KERNELS)
+    kernels = tuple(getattr(ck, name) for name in names)
+    plain = tuple(getattr(ck, name + "_plain") for name in names)
     routes = {"plain": plain, "plain fusion": kernels[:3] + plain[3:],
               "eager gather": plain[:1] + kernels[1:], "kernel": kernels,
               "plain epilogue": kernels}
     use_plain = getattr(device, "_use_plain", None)
 
     def take(route):
-        for name, fn in zip(COVERAGE_KERNELS, routes[route]):
+        for name, fn in zip(names, routes[route]):
             setattr(ck, name, fn)
         if use_plain is not None:
             device._use_plain = ((lambda t: True) if route == "plain epilogue"
@@ -222,6 +245,70 @@ def main(argv=None):
             host_profiled(route)
     finally:
         take("kernel")
+    if args.walls and args.old_csrc:
+        alternate_walls(args, serve, batches, _kernels, ck)
+    elif args.walls:
+        walls = sorted(serve(batches[i % len(batches)]) * 1e3
+                       for i in range(args.walls))
+        print(f"[walls] {args.walls} batches of {BATCH} with the kernels: "
+              f"median {walls[len(walls) // 2]:.1f} ms, min {walls[0]:.1f}, "
+              f"max {walls[-1]:.1f}; all {[round(w, 1) for w in walls]}",
+              flush=True)
+
+
+def alternate_walls(args, serve, batches, _kernels, ck):
+    """``args.walls`` pairs of walls: pair i serves batch i mod 5 once with
+    the pair and fuzzy kernels built from ``args.old_csrc`` ("old") and
+    once with today's ("new"), old first in even pairs, new first in odd
+    ones, after one unrecorded pass of every batch on each side. Prints
+    each side's walls and the pairs' differences (new - old)."""
+    import ctypes
+
+    so = os.path.join(args.out, "libinfidex_old_pairs_fuzzy.so")
+    res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", so,
+                          *(os.path.join(args.old_csrc, f) for f in
+                            ("coverage_pairs.cu", "stage1_fuzzy.cu"))],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+    old = _kernels.bind(ctypes.CDLL(so))
+    new_block, new_fuzzy = ck.coverage_pair_block, _kernels.stage1_fuzzy
+
+    def old_block(q_set, fq_set, *doc):
+        return (_kernels.coverage_pairs(*q_set, *doc, True, lib=old),
+                _kernels.coverage_pairs(*fq_set, *doc, False, lib=old))
+
+    def old_fuzzy(*a):
+        return new_fuzzy(*a, lib=old)
+
+    def wall(side, b):
+        ck.coverage_pair_block = old_block if side == "old" else new_block
+        _kernels.stage1_fuzzy = old_fuzzy if side == "old" else new_fuzzy
+        return serve(b) * 1e3
+
+    walls = {"old": [], "new": []}
+    try:
+        for b in batches:
+            wall("old", b), wall("new", b)
+        for i in range(args.walls):
+            b = batches[i % len(batches)]
+            for side in (("old", "new") if i % 2 == 0 else ("new", "old")):
+                walls[side].append(wall(side, b))
+    finally:
+        ck.coverage_pair_block, _kernels.stage1_fuzzy = new_block, new_fuzzy
+
+    def quartiles(v):
+        v = sorted(v)
+        return [round(v[(len(v) - 1) * q // 4], 1) for q in range(5)]
+
+    for side, w in walls.items():
+        print(f"[walls, {side} kernels] {len(w)} batches of {BATCH}: "
+              f"min, quartiles, max {quartiles(w)}; in order "
+              f"{[round(x, 1) for x in w]}", flush=True)
+    diff = [n - o for n, o in zip(walls["new"], walls["old"])]
+    print(f"[walls, new - old] {len(diff)} pairs on the same batch: min, "
+          f"quartiles, max {quartiles(diff)}; new faster in "
+          f"{sum(d < 0 for d in diff)} of {len(diff)}", flush=True)
 
 
 if __name__ == "__main__":

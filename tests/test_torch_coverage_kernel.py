@@ -8,8 +8,9 @@ batches), tests/test_device_lcs.py (device fake-LCS) and the multi-query
 part of tests/test_editdistance_device.py, over all three shape buckets
 (small: d_cap 8 at 12 chars, narrow: d_cap 16, wide: full width).
 
-The program reaches its two hand-written kernels' dispatchers
-(``coverage_pairs``, ``coverage_cascade``) once per block and call site; on
+The program reaches its hand-written kernels' dispatchers
+(``gather_block``, ``coverage_pair_block``, ``coverage_cascade``) once per
+block; on
 the CPU those take the plain versions, so every comparison here holds the
 plain versions to the reference (tests/test_torch_cascade.py and
 tests/test_torch_editdistance.py hold the kernels' code to the plain
@@ -271,17 +272,19 @@ def test_row_blocks_do_not_change_results(monkeypatch):
 
 @pytest.mark.parametrize("bucket", sorted(BUCKETS))
 def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
-    """Per row block: one gather call, then one pair call with distances
-    (the coverage query tokens), one without (the fusion query tokens), one
-    cascade call over the first's words; the eager gather, the relations
-    and the eager cascade are reached through the plain versions only."""
+    """Per row block: one gather call, then one pair-block call (the
+    coverage query tokens' words with distances and the fusion query
+    tokens' without, the plain version called once for each on the CPU),
+    one cascade call over the first set of words; the eager gather, the
+    relations and the eager cascade are reached through the plain
+    versions only."""
     rng, setup, lower, encs, jt, pt = _setup(5)
     d_cap, l_cap = BUCKETS[bucket]
     config = ref.CoverageConfig.from_setup(setup)._replace(d_cap=d_cap)
     args = _args(rng, encs, len(lower), l_cap)
     want = port.coverage_fusion_batch(*_tables(pt), *args, config=config)
     calls = []
-    pairs, cascade = port.coverage_pairs, port.coverage_cascade
+    pair_block, cascade = port.coverage_pair_block, port.coverage_cascade
     plain_pairs = port.coverage_pairs_plain
     gather, plain_gather = port.gather_block, port.gather_block_plain
 
@@ -294,9 +297,9 @@ def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
         calls.append(("plain gather",))
         return plain_gather(*a)
 
-    def pairs_spy(*a, distances):
-        out = pairs(*a, distances=distances)
-        calls.append(("pairs", distances, out))
+    def pair_block_spy(*a):
+        out = pair_block(*a)
+        calls.append(("pair block", out))
         return out
 
     def cascade_spy(*a):
@@ -304,10 +307,10 @@ def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
         return cascade(*a)
 
     def plain_pairs_spy(*a):
-        calls.append(("plain pairs",))
+        calls.append(("plain pairs", a[-1]))
         return plain_pairs(*a)
 
-    monkeypatch.setattr(port, "coverage_pairs", pairs_spy)
+    monkeypatch.setattr(port, "coverage_pair_block", pair_block_spy)
     monkeypatch.setattr(port, "coverage_cascade", cascade_spy)
     monkeypatch.setattr(port, "coverage_pairs_plain", plain_pairs_spy)
     monkeypatch.setattr(port, "gather_block", gather_spy)
@@ -318,16 +321,16 @@ def test_block_goes_through_the_kernels_dispatchers(monkeypatch, bucket):
     assert torch.equal(got, want)
     # the spied dispatchers are the only callers of the plain versions here
     assert [c[0] for c in calls] == ["plain gather", "gather", "plain pairs",
-                                     "pairs", "cascade", "plain pairs",
-                                     "pairs"] * n_blocks
-    for i in range(0, len(calls), 7):
-        (_, (_, g), _, (_, with_dist, words), (_, seen, cfg, lens), _,
-         (_, f_dist, f_words)) = calls[i:i + 7]
+                                     "plain pairs", "pair block",
+                                     "cascade"] * n_blocks
+    for i in range(0, len(calls), 6):
+        (_, (_, g), (_, with_dist), (_, f_dist), (_, (words, f_words)),
+         (_, seen, cfg, lens)) = calls[i:i + 6]
         assert isinstance(g, port.GatheredBlock) and lens is g.lens
         assert with_dist is True and f_dist is False
         assert seen is words and cfg == config
         assert words.dtype == torch.int32 and (words >> 16).any()
-        assert not (f_words >> 16).any()
+        assert f_words.dtype == torch.int32 and not (f_words >> 16).any()
     assert all(n == 0 for n in _kernels.launch_counts.values())
 
 
@@ -357,7 +360,7 @@ def test_pair_words_round_trip():
 def test_cuda_program_equals_cpu_program(bucket, with_lcs):
     """The whole program on the card (gather, pair and cascade kernels)
     against the CPU (plain versions): bit-identical, one gather, one
-    cascade and two pair launches per row block."""
+    cascade and one pair launch per row block."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     rng, setup, lower, encs, jt, pt = _setup(
@@ -378,7 +381,7 @@ def test_cuda_program_equals_cpu_program(bucket, with_lcs):
                                        want.view(torch.int32))
     assert _kernels.launch_counts["coverage_gather"] == 1
     assert _kernels.launch_counts["coverage_cascade"] == 1
-    assert _kernels.launch_counts["coverage_pairs"] == 2
+    assert _kernels.launch_counts["coverage_pairs"] == 1
 
 
 def test_tables_match_reference_tables():

@@ -8,15 +8,21 @@ reference.
   infidex_tpu/ops/editdistance_multi.py called as
   infidex_tpu/ops/coverage_kernel.py:640-662 calls them, on the CPU): all
   five tensors exactly equal (integers, tolerance 0);
-* the CUDA kernel's per-cell code (``pair_cell`` of
+* the CUDA kernel's block code (``pairs::block`` of
   csrc/edit_distances_cell.cuh, the header csrc/coverage_pairs.cu includes),
-  compiled for the host with g++ and run over every cell, its distance
-  fields against the plain distances: exactly equal;
+  compiled for the host with g++ -ffp-contract=off behind the kernel's C
+  interfaces and called through the port's wrappers (``lib=``), blocks in
+  turn over shared memory filled with 0x7f, at several tile sizes: its
+  distance fields against the plain distances, and its whole pair words,
+  with and without distances and for a coverage block's two sets of query
+  tokens in one call, against ``coverage_pairs_plain``: exactly equal;
+* its bit-parallel distances against the band route (``pair_cell``, the
+  plain version's banded sweeps cell by cell) and the plain version on
+  every pair of words of up to 5 chars over 3 letters and on 100,000
+  seeded pairs of up to 24 chars (past L at L 12): exactly equal;
 * the plain word relations (``_pairwise_primitives``, ``_q_startswith_d_t``)
   against the JAX functions of the same names, and the pair word's
   packing: exactly equal;
-* the same code's whole pair word, with and without distances, against
-  ``coverage_pairs_plain``: exactly equal;
 * on a card, the kernel against the plain version: exactly equal.
 
 Inputs are made with numpy from a seed: words over a five-letter alphabet,
@@ -25,7 +31,7 @@ coverage program's three shape classes.
 """
 
 import ctypes
-import os
+import itertools
 import shutil
 import subprocess
 
@@ -238,15 +244,61 @@ def test_known_distances():
     assert pdam2[1, :, 0].tolist() == [1, 1, 1, 1, 1, 0, 0, 0]
 
 
-# --- the kernel's per-cell code, compiled for the host ---------------------
+# --- the kernel's block code, compiled for the host -----------------------
 
-_HOST_LOOP = r"""
+_HOST = r"""
+#include <cstring>
+#include <vector>
 #include "edit_distances_cell.cuh"
+// csrc/coverage_pairs.cu's C interfaces on the host: the kernel's blocks
+// in turn (last to first), each block's shared memory filled with 0x7f
+// bytes first, one thread running the block's steps; tiles sized for
+// g_blocks blocks. coverage_pairs_band: the band route (pair_cell), cell
+// by cell, in the kernel's addressing.
+static int g_blocks = 7;
+extern "C" void set_tile_blocks(int b) { g_blocks = b; }
+template <int L>
+static int run_blocks(const pairs::Args& a) {
+  const int t = pairs::tile_candidates(L, a.n_s + a.n_f, a.n_d, a.n_c,
+                                       g_blocks);
+  if (t == 0) return 1;
+  int lt = 0;
+  while ((1 << lt) < t) ++lt;
+  std::vector<int> smem(pairs::layout(L, a.n_s + a.n_f, a.n_d, t).ints);
+  for (int b = (a.n_c + t - 1) / t - 1; b >= 0; --b) {
+    std::memset(smem.data(), 0x7f, smem.size() * sizeof(int));
+    pairs::block<L>(a, lt, b * t, 0, 1, smem.data());
+  }
+  return 0;
+}
+static int run(const pairs::Args& a, int n_l) {
+  if (a.n_c <= 0 || a.n_d <= 0 || a.n_s + a.n_f <= 0) return 0;
+  if (n_l == 12) return run_blocks<12>(a);
+  if (n_l == 24) return run_blocks<24>(a);
+  return 1;
+}
+extern "C" int coverage_pairs(const int* qc, const int* qr, const int* ql,
+    const int* dc, const int* dr, const int* dl, const unsigned char* valid,
+    int n_s, int n_l, int n_d, int n_c, int with_distances, int* out,
+    void*) {
+  const pairs::Args a{qc, qr, ql, nullptr, nullptr, nullptr, dc, dr, dl,
+                      valid, n_s, 0, n_d, n_c, with_distances != 0, out,
+                      nullptr};
+  return run(a, n_l);
+}
+extern "C" int coverage_pair_block(const int* qc, const int* qr,
+    const int* ql, int n_s, const int* fqc, const int* fqr, const int* fql,
+    int n_f, const int* dc, const int* dr, const int* dl,
+    const unsigned char* valid, int n_l, int n_d, int n_c, int* out,
+    int* fout, void*) {
+  const pairs::Args a{qc, qr, ql, fqc, fqr, fql, dc, dr, dl, valid,
+                      n_s, n_f, n_d, n_c, 1, out, fout};
+  return run(a, n_l);
+}
 template <int L, bool DIST>
-static void run_pairs(const int* qc, const int* qr, const int* ql,
-                      const int* dc, const int* dr, const int* dl,
-                      const unsigned char* valid, int n_q, int n_d, int n_c,
-                      int* out) {
+static void band(const int* qc, const int* qr, const int* ql, const int* dc,
+                 const int* dr, const int* dl, const unsigned char* valid,
+                 int n_q, int n_d, int n_c, int* out) {
   for (int q = 0; q < n_q; ++q)
     for (int d = 0; d < n_d; ++d)
       for (int c = 0; c < n_c; ++c) {
@@ -258,18 +310,18 @@ static void run_pairs(const int* qc, const int* qr, const int* ql,
             valid[d_at] != 0);
       }
 }
-extern "C" int coverage_pairs_host(const int* qc, const int* qr,
+extern "C" int coverage_pairs_band(const int* qc, const int* qr,
     const int* ql, const int* dc, const int* dr, const int* dl,
     const unsigned char* valid, int n_q, int n_l, int n_d, int n_c,
     int with_distances, int* out) {
   if (n_l == 12 && with_distances)
-    run_pairs<12, true>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+    band<12, true>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
   else if (n_l == 12)
-    run_pairs<12, false>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+    band<12, false>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
   else if (n_l == 24 && with_distances)
-    run_pairs<24, true>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+    band<24, true>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
   else if (n_l == 24)
-    run_pairs<24, false>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
+    band<24, false>(qc, qr, ql, dc, dr, dl, valid, n_q, n_d, n_c, out);
   else return 1;
   return 0;
 }
@@ -278,42 +330,61 @@ extern "C" int coverage_pairs_host(const int* qc, const int* qr,
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/edit_distances_cell.cuh compiled with g++ behind loops over
-    the cells in the kernels' own addressing."""
+    """csrc/edit_distances_cell.cuh compiled with g++ -ffp-contract=off
+    behind csrc/coverage_pairs.cu's C interfaces (the kernel's block code)
+    and beside the band route, bound as the port binds the card's
+    library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++")
     tmp = tmp_path_factory.mktemp("pair_cell")
-    src, so = tmp / "cells.cpp", tmp / "libpair_cell.so"
-    src.write_text(_HOST_LOOP)
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I",
-                    os.path.join(os.path.dirname(_kernels.__file__), "..",
-                                 "csrc"), "-o", str(so), str(src)],
+    src, so = tmp / "pairs.cpp", tmp / "libpair_host.so"
+    src.write_text(_HOST)
+    subprocess.run([gxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", _kernels._CSRC, "-o", str(so), str(src)],
                    check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    lib = _kernels.bind(ctypes.CDLL(str(so)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.coverage_pairs_host.argtypes = [p] * 7 + [i] * 5 + [p]
-    lib.coverage_pairs_host.restype = i
+    lib.coverage_pairs_band.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.coverage_pairs_band.restype = i
+    lib.set_tile_blocks.argtypes = [i]
+    lib.set_tile_blocks.restype = None
     return lib
+
+
+def _host_pairs(lib, arrays, distances, blocks=7):
+    """The kernel's block code on the host through the port's wrapper
+    (``lib=``): the pair words of ``_pair_inputs``-like arrays."""
+    lib.set_tile_blocks(blocks)
+    return _kernels.coverage_pairs(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays),
+        distances, lib=lib).numpy()
+
+
+def _band_pairs(lib, arrays, distances):
+    """The band route's pair words, cell by cell."""
+    arrays = [np.ascontiguousarray(a, np.uint8 if a.dtype == bool
+                                   else np.int32) for a in arrays]
+    n_q, n_l, n_c = arrays[0].shape
+    n_d = arrays[3].shape[1]
+    out = np.full((n_q, n_d, n_c), -7, np.int32)
+    assert lib.coverage_pairs_band(*(a.ctypes.data for a in arrays), n_q,
+                                   n_l, n_d, n_c, int(distances),
+                                   out.ctypes.data) == 0
+    return out
 
 
 @pytest.fixture(scope="module")
 def host_cell(host_lib):
-    """``pair_cell`` over every cell, every doc token valid: the five
-    distance fields of its pair words."""
-    lib = host_lib
+    """The kernel's block code, every doc token valid: the five distance
+    fields of its pair words."""
 
     def run(qc, qr, ql, dc, dr, dl):
         arrays = [np.ascontiguousarray(a, np.int32)
                   for a in (qc, qr, ql, dc, dr, dl)]
-        n_q, n_l, n_c = arrays[0].shape
-        n_d = arrays[3].shape[1]
-        valid = np.ones((n_d, n_c), np.uint8)
-        out = np.full((n_q, n_d, n_c), -7, np.int32)
-        rc = lib.coverage_pairs_host(*(a.ctypes.data for a in arrays),
-                                     valid.ctypes.data, n_q, n_l, n_d, n_c, 1,
-                                     out.ctypes.data)
-        assert rc == 0 and (out >= 0).all()
+        valid = np.ones(arrays[5].shape, bool)
+        out = _host_pairs(host_lib, arrays + [valid], True)
+        assert (out >= 0).all()
         return [t.numpy() for t in
                 port_ed.unpack_distances(torch.from_numpy(out))]
 
@@ -341,12 +412,100 @@ def test_kernel_cell_code_with_lengths_past_the_table(host_cell):
         assert np.array_equal(g, w), name
 
 
+def _word_pairs(qs, ds, L):
+    """One cell per (query word, doc word) pair: arrays of
+    ``_pair_inputs``' layout with S = D = 1, C pairs, words longer than L
+    stored as the tables store them (their first L chars, and reversed
+    their last L), every doc token valid."""
+    n = len(qs)
+    qc = np.zeros((1, L, n), np.int32)
+    qr, ql = qc.copy(), np.zeros((1, n), np.int32)
+    dc = np.zeros((L, 1, n), np.int32)
+    dr, dl = dc.copy(), np.zeros((1, n), np.int32)
+    for c, (q, d) in enumerate(zip(qs, ds)):
+        ql[0, c], dl[0, c] = len(q), len(d)
+        qc[0, :min(len(q), L), c] = q[:L]
+        qr[0, :min(len(q), L), c] = q[::-1][:L]
+        dc[:min(len(d), L), 0, c] = d[:L]
+        dr[:min(len(d), L), 0, c] = d[::-1][:L]
+    return qc, qr, ql, dc, dr, dl, np.ones((1, n), bool)
+
+
+def _small_words():
+    """Every word of 0-5 chars over a three-letter alphabet (364)."""
+    words = [[]]
+    for n in range(1, 6):
+        words += [list(w) for w in itertools.product((97, 98, 99), repeat=n)]
+    return words
+
+
+@pytest.mark.parametrize("L", [12, 24])
+def test_bit_parallel_distances_equal_the_band_sweep_exhaustively(host_lib,
+                                                                  L):
+    """Every pair of words of up to 5 chars over 3 letters (132,496
+    cells): the kernel's words (bit-parallel distances, one equality mask
+    a doc char) equal the band route's bit for bit, with and without
+    distances, and the plain version's."""
+    words = _small_words()
+    qs = [q for q in words for _ in words]
+    ds = [d for _ in words for d in words]
+    arrays = _word_pairs(qs, ds, L)
+    for distances in (True, False):
+        got = _host_pairs(host_lib, arrays, distances, blocks=97)
+        band = _band_pairs(host_lib, arrays, distances)
+        bad = np.argwhere(got != band)
+        assert bad.size == 0, [(qs[c], ds[c]) for _, _, c in bad[:3]]
+        if distances:
+            want = _pairs_plain(arrays, True).numpy()
+            assert np.array_equal(got, want)
+            # the pairs reach every value of every distance
+            for k, shift in enumerate(_kernels.PAIR_DIST_SHIFTS):
+                assert set(np.unique((got >> shift) & 7)) == (
+                    {0, 1, 2, 3, 4} if k == 1 else {0, 1, 2, 3}), NAMES[k]
+
+
+@pytest.mark.parametrize("L,max_len", [(24, 24), (12, 12), (12, 24)],
+                         ids=["L24", "L12", "L12_past_the_table"])
+def test_bit_parallel_distances_on_random_pairs(host_lib, L, max_len):
+    """100,000 seeded pairs of 0-``max_len`` chars (over 3 letters and over
+    26, a third of them one substitution apart; past L where ``max_len``
+    exceeds it): the kernel's words equal the band route's bit for bit,
+    and the plain version's (past L: their distances)."""
+    rng = np.random.default_rng(L * 100 + max_len)
+    n = 100_000
+
+    def word(k):
+        return list(97 + rng.integers(3 if k % 2 else 26,
+                                      size=rng.integers(0, max_len + 1)))
+
+    qs = [word(k) for k in range(n)]
+    ds = [word(k) for k in range(n)]
+    for k in range(0, n, 3):
+        d = list(qs[k])
+        if d and rng.integers(2):
+            d[rng.integers(len(d))] = 97 + rng.integers(3)
+        ds[k] = d
+    arrays = _word_pairs(qs, ds, L)
+    for distances in (True, False):
+        got = _host_pairs(host_lib, arrays, distances, blocks=41)
+        assert np.array_equal(got, _band_pairs(host_lib, arrays, distances))
+        want = _pairs_plain(arrays, distances).numpy()
+        if max_len > L:
+            # past the table the relations are not defined (the tables
+            # write lengths of at most L); the distances are
+            got, want = got >> 16, want >> 16
+        assert np.array_equal(got, want)
+
+
 def test_cpu_tensors_never_reach_the_kernel_wrapper():
     z = torch.zeros((1, 12, 1), dtype=torch.int32)
+    zt = z.permute(1, 0, 2).contiguous()
     with pytest.raises(ValueError):
-        _kernels.coverage_pairs(z, z, z[:, 0], z.permute(1, 0, 2).contiguous(),
-                                z.permute(1, 0, 2).contiguous(), z[:, 0],
-                                z[:, 0] > 0, True)
+        _kernels.coverage_pairs(z, z, z[:, 0], zt, zt, z[:, 0], z[:, 0] > 0,
+                                True)
+    with pytest.raises(ValueError):
+        _kernels.coverage_pair_block((z, z, z[:, 0]), (z, z, z[:, 0]), zt, zt,
+                                     z[:, 0], z[:, 0] > 0)
 
 
 # --- pair words: the relations beside the distances ------------------------
@@ -370,25 +529,6 @@ def _pair_inputs(seed, Q, D, L, case):
 def _pairs_plain(arrays, distances):
     return port_ck.coverage_pairs_plain(
         *(torch.from_numpy(a) for a in arrays), distances)
-
-
-@pytest.fixture(scope="module")
-def host_pairs(host_lib):
-    """``pair_cell`` over every cell: the pair words."""
-
-    def run(arrays, distances):
-        arrays = [np.ascontiguousarray(a, np.uint8 if a.dtype == bool
-                                       else np.int32) for a in arrays]
-        n_q, n_l, n_c = arrays[0].shape
-        n_d = arrays[3].shape[1]
-        out = np.full((n_q, n_d, n_c), -7, np.int32)
-        rc = host_lib.coverage_pairs_host(
-            *(a.ctypes.data for a in arrays), n_q, n_l, n_d, n_c,
-            int(distances), out.ctypes.data)
-        assert rc == 0
-        return out
-
-    return run
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -422,13 +562,39 @@ def test_plain_relations_equal_the_reference(shape, case):
                          ids=["with_distances", "relations_only"])
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_pair_cell_code_equals_the_plain_version(host_pairs, shape, case,
+def test_pair_cell_code_equals_the_plain_version(host_lib, shape, case,
                                                  distances):
     arrays = _pair_inputs(4000 + _seed(shape, case), *shape, case)
-    got = host_pairs(arrays, distances)
     want = _pairs_plain(arrays, distances).numpy()
-    bad = np.argwhere(got != want)
-    assert bad.size == 0, (bad[:5], got[tuple(bad[0])], want[tuple(bad[0])])
+    for blocks in (1, 7, 1000):     # tiles of up to 16, 2 and 1 candidates
+        got = _host_pairs(host_lib, arrays, distances, blocks)
+        bad = np.argwhere(got != want)
+        assert bad.size == 0, (blocks, bad[:5], got[tuple(bad[0])],
+                               want[tuple(bad[0])])
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_pair_block_code_equals_the_plain_version(host_lib, shape, case):
+    """One launch for a coverage block's two sets of query tokens: the Q
+    tokens' words with distances and the fusion tokens' (other words, a
+    different count) without, each equal to its plain call."""
+    arrays = _pair_inputs(6000 + _seed(shape, case), *shape, case)
+    Q, D, L = shape
+    fq = _pair_inputs(7000 + _seed(shape, case), Q // 2 + 1, D, L, case)
+    q_set = [torch.from_numpy(a) for a in arrays[:3]]
+    fq_set = [torch.from_numpy(a) for a in fq[:3]]
+    doc = [torch.from_numpy(a) for a in arrays[3:]]
+    host_lib.set_tile_blocks(5)
+    got, f_got = _kernels.coverage_pair_block(q_set, fq_set, *doc,
+                                              lib=host_lib)
+    assert torch.equal(got, _pairs_plain(arrays, True))
+    assert torch.equal(f_got, _pairs_plain(fq[:3] + arrays[3:], False))
+    assert torch.equal(got, torch.from_numpy(
+        _host_pairs(host_lib, arrays, True)))
+    # the CPU dispatcher: the plain version twice
+    want = port_ck.coverage_pair_block(q_set, fq_set, *doc)
+    assert torch.equal(want[0], got) and torch.equal(want[1], f_got)
 
 
 def test_known_relations():
@@ -511,3 +677,25 @@ def test_cuda_pair_kernel_matches_plain_version(shape, case, distances):
     assert _kernels.launch_counts["coverage_pairs"] == n0 + 2
     for g in got:
         assert torch.equal(g.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_pair_block_matches_plain_version(shape, case):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    arrays = _pair_inputs(8000 + _seed(shape, case), *shape, case)
+    Q, D, L = shape
+    fq = _pair_inputs(9000 + _seed(shape, case), Q // 2 + 1, D, L, case)
+    want = (_pairs_plain(arrays, True),
+            _pairs_plain(fq[:3] + arrays[3:], False))
+    q_set = [torch.from_numpy(a).cuda() for a in arrays[:3]]
+    fq_set = [torch.from_numpy(a).cuda() for a in fq[:3]]
+    doc = [torch.from_numpy(a).cuda() for a in arrays[3:]]
+    n0 = _kernels.launch_counts["coverage_pairs"]
+    got = port_ck.coverage_pair_block(q_set, fq_set, *doc)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["coverage_pairs"] == n0 + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])

@@ -75,6 +75,10 @@ static S* fresh(std::vector<unsigned char>& buf) {
   buf.assign(sizeof(S), 0x7f);
   return reinterpret_cast<S*>(buf.data());
 }
+// the fuzzy kernel's warps last to first, or first to last after
+// fuzzy_warps_forward(1): which lane turns a bit on differs, the df not
+static int g_forward = 0;
+extern "C" void fuzzy_warps_forward(int f) { g_forward = f; }
 extern "C" int stage1_fuzzy(const int* starts, const int* group,
     const int* cum, int n_terms, long long n_lanes, const int* docs,
     int doc_lo, int doc_hi, unsigned* bits, long long words, int n_grp,
@@ -82,10 +86,10 @@ extern "C" int stage1_fuzzy(const int* starts, const int* group,
   if (n_grp <= 0) return 0;
   const fuzzy::Args a{starts, group, cum, n_terms, n_lanes, docs, doc_lo,
                       doc_hi, bits, words, n_grp, df};
-  for (long long i = 0; i < n_lanes; ++i) fuzzy::mark(a, i);
-  std::vector<unsigned char> buf;
-  for (int g = 0; g < n_grp; ++g) {
-    fuzzy::row_df(a, g, fresh<fuzzy::DfShared>(buf));
+  const long long n_warps = (n_lanes + 31) / 32;
+  for (long long k = 0; k < n_warps; ++k) {
+    const long long w = g_forward ? k : n_warps - 1 - k;
+    fuzzy::mark_warp(blk::Warp{}, a, 32 * w);
   }
   return 0;
 }
@@ -249,6 +253,15 @@ def union_df(index, fz, n_grp, lo, hi):
     return out
 
 
+def lane_counts(index, fz, n_grp, lo, hi):
+    """Each group's posting lanes whose doc lies in [lo, hi), by numpy."""
+    docs = index.postings_docs.cpu().numpy()
+    out = np.zeros(n_grp, np.int64)
+    for s, n, g in zip(fz.starts, fz.lens, fz.group):
+        out[g] += int(((docs[s:s + n] >= lo) & (docs[s:s + n] < hi)).sum())
+    return out
+
+
 def topk_rows(seed, width=WIDTH):
     """Rows that reach every branch of the select: heavy ties, -0.0 and
     negatives, all zeros, distinct values, fewer positives than k, a tie
@@ -409,19 +422,51 @@ def fuzzy_cases():
 
 @pytest.mark.parametrize("seed,window", fuzzy_cases())
 def test_fuzzy_cell_equals_plain(host, seed, window):
+    """The one-pass kernel's warps in either order: the bitset, and the df
+    counted by the lanes that turned a bit on (a doc in several of a
+    group's terms once), against the plain version's row sums and a numpy
+    union."""
     g = Group(seed)
     di, fz = g.index, g.fz
     lo, hi = window or (0, di.n_pad)
     want_p, want_df = port_dev.fuzzy_presence(di.postings_docs, fz, g.n_grp,
                                               lo, hi)
-    bits, df = _kernels.stage1_fuzzy(di.postings_docs, fz.d_starts,
-                                     fz.d_group, fz.d_cum, fz.n_lanes,
-                                     g.n_grp, lo, hi, lib=host)
-    inside, past = unpack(bits, hi - lo)
-    assert np.array_equal(inside, want_p.numpy() > 0)
-    assert not past.any()
-    assert torch.equal(df, want_df)
-    assert np.array_equal(df.numpy(), union_df(di, fz, g.n_grp, lo, hi))
+    # the case has docs shared by two terms of one group
+    assert (union_df(di, fz, g.n_grp, lo, hi)
+            < lane_counts(di, fz, g.n_grp, lo, hi)).any()
+    for forward in (0, 1):
+        host.fuzzy_warps_forward(forward)
+        bits, df = _kernels.stage1_fuzzy(di.postings_docs, fz.d_starts,
+                                         fz.d_group, fz.d_cum, fz.n_lanes,
+                                         g.n_grp, lo, hi, lib=host)
+        inside, past = unpack(bits, hi - lo)
+        assert np.array_equal(inside, want_p.numpy() > 0)
+        assert not past.any()
+        assert torch.equal(df, want_df)
+        assert np.array_equal(df.numpy(), union_df(di, fz, g.n_grp, lo, hi))
+    host.fuzzy_warps_forward(0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fuzzy_cell_on_shard_windows(host, seed):
+    """Four shards' windows of one group (the sharded route's calls): each
+    window's df equals the plain version's, and the windows' df add up to
+    the whole index's."""
+    g = Group(seed)
+    di, fz = g.index, g.fz
+    edges = [0, 230, 450, 677, di.n_pad]
+    total = torch.zeros(g.n_grp, dtype=torch.int32)
+    for lo, hi in zip(edges, edges[1:]):
+        want_p, want_df = port_dev.fuzzy_presence(di.postings_docs, fz,
+                                                  g.n_grp, lo, hi)
+        bits, df = _kernels.stage1_fuzzy(di.postings_docs, fz.d_starts,
+                                         fz.d_group, fz.d_cum, fz.n_lanes,
+                                         g.n_grp, lo, hi, lib=host)
+        assert np.array_equal(unpack(bits, hi - lo)[0], want_p.numpy() > 0)
+        assert torch.equal(df, want_df)
+        total += df
+    assert np.array_equal(total.numpy(),
+                          union_df(di, fz, g.n_grp, 0, di.n_pad))
 
 
 def epilogue_cases():
