@@ -113,6 +113,23 @@ Run from the repository root. Phases, in order; any failure exits non-zero:
      per group for the shards' score and LIM merges, which then equal the
      merges they replace on the first group's lists (top-k kernel device
      time beside ``torch.topk`` and the bound).
+ 13. The single-query device Stage 1 (run after phase 6, on the 1M-doc
+     bench index): ``DeviceIndex.search`` over 64 bench queries at top
+     500, each typo query's fuzzy groups materialised as extra postings
+     (tests/test_search_batch.py's recipe over the terms' device ranges),
+     with the kernels' counts reset just before and read just after: one
+     lane launch a query with lanes, one extras launch (``stage1_extras``)
+     a query with extras, one epilogue pass and one top-k launch each, and
+     nothing else; host p50/p95 of a search and the device ms of one by
+     kernel. Ids equal to ``search_batch``'s on the same preps, scores
+     within rtol 1e-6 and bit-equal where a doc takes at most one extra.
+     The extras kernel against its plain version on the largest extras
+     set (its query's real row) and on 200,000 synthetic extras over
+     60,000 docs: bit-equal, two identical runs, device ms beside the
+     plain version's in turns, the bound and one ``index_add_``. The same
+     searches on 4 shards of the card (``ShardedDeviceIndex.search``):
+     bit-equal to the one-card route. A 20,000-doc corpus searched on the
+     CPU and on the card: bit-equal.
 
 At the end no loaded module and no native library may come from the JAX
 package's directory. Each phase prints its seconds. The line before the
@@ -2132,6 +2149,299 @@ def single_query_phase(it, eng, queries):
         f"'shawshenk' -> doc 0 first")
 
 
+#: the single-query device phase: queries, top-k, and the CPU-vs-CUDA
+#: corpus
+DEVICE_SINGLES, DEVICE_SINGLE_K, DEVICE_SINGLE_CROSS_DOCS = 64, 500, 20_000
+#: the synthetic extras of the extras-kernel check: docs of a row, their
+#: distinct docs
+EXTRAS_SYNTH, EXTRAS_SYNTH_DOCS = 200_000, 60_000
+
+
+def device_extras(torch, m, groups):
+    """A query's fuzzy groups as explicit extra postings (docs int32, idfs
+    f32), as tests/test_search_batch.py:105-118 makes them: each group's
+    union of posting docs where 0 < size <= the stop limit, at its union's
+    idf. Over the terms' device ranges (champion-clipped above
+    DEVICE_TERM_CAP postings) and with the batch route's idf
+    (``fuzzy_idf``), the union and idf ``search_batch`` scores; (None,
+    None) without any."""
+    import numpy as np
+
+    from infidex_tpu_torch.index import device as D
+
+    built = m.built
+    docs, idfs = [], []
+    for grp in groups:
+        parts = [built.ext_docs[s:s + n] for s, n in (
+            D.term_device_range(built, int(t)) for t in np.asarray(grp))]
+        union = (np.unique(np.concatenate(parts)) if parts
+                 else np.zeros(0, np.int32))
+        if 0 < union.size <= m.stop_term_limit:
+            fidf = D.fuzzy_idf(
+                torch.tensor([union.size], dtype=torch.int32),
+                torch.tensor(float(np.float32(m.documents.count))),
+                torch.tensor(float(np.float32(m.stop_term_limit))))
+            docs.append(union.astype(np.int32))
+            idfs.append(np.full(union.size, float(fidf[0]), np.float32))
+    if not docs:
+        return None, None
+    return np.concatenate(docs), np.concatenate(idfs)
+
+
+def device_by_kernel(torch, fn, reps: int) -> dict:
+    """Mean device ms a call of ``fn`` (run before) by kernel name (its
+    first 40 chars), from a torch.profiler session of ``reps`` calls
+    (records a session dropped count as missing, not as zero)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by.setdefault(e.name[:40], []).append(e.time_range.elapsed_us())
+    return {name: sum(v) / len(v) / 1e3 for name, v in by.items()}
+
+
+def extras_check(torch, _kernels, dev_index, row, docs, idf, label: str):
+    """The extras kernel against its plain version on the score row
+    ``row`` (CUDA, f32 [n_pad]) and the extras (docs, idf): bit-equal,
+    two identical runs; the kernel's device time (torch.profiler) beside
+    the plain version's (events) in turns, the bound from these extras,
+    and ``index_add_``'s time (all the extras' contributions in one call,
+    the library's scatter; float atomics, so not bit-equal)."""
+    import numpy as np
+
+    from infidex_tpu_torch.index import device as D
+
+    doc_fac = dev_index.doc_fac
+    docs64 = docs.astype(np.int64)
+    plain = row.cpu()
+    D.stage1_extras_plain(plain, docs64, idf, doc_fac.cpu())
+    t = D.extras_table(docs64, idf, row.device)
+    runs = []
+    for _ in range(2):
+        got = row.clone()
+        _kernels.stage1_extras(got, t.docs, t.off, t.idf, doc_fac)
+        torch.cuda.synchronize()
+        runs.append(got.cpu())
+    check(torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32)),
+          f"extras kernel ({label}): two runs differ")
+    check(torch.equal(runs[0].view(torch.int32), plain.view(torch.int32)),
+          f"extras kernel ({label}): differs from the plain version")
+    err = float((runs[0] - plain).abs().max())
+    scratch = row.clone()
+    d_dev = torch.from_numpy(docs64).to(row.device)
+    src = torch.from_numpy(idf).to(row.device) * doc_fac[d_dev]
+
+    def kernel():
+        _kernels.stage1_extras(scratch, t.docs, t.off, t.idf, doc_fac)
+
+    def plain_fn():
+        D.stage1_extras_plain(scratch, docs64, idf, doc_fac)
+
+    def library():
+        scratch.index_add_(0, d_dev, src)
+
+    kernel()
+    plain_fn()
+    ms, kept, origin = kernel_ms(torch, kernel, "stage1_extras", 20)
+    plain_ms = in_turns(torch, plain_fn, kernel, 5)[1]
+    library_ms = cuda_ms(torch, library, 20)
+    n_e, n_u = int(docs.size), int(t.docs.numel())
+    ranks = int(np.bincount(docs64).max())
+    # each input read once, the output written once: the extras' docs and
+    # idfs, each distinct doc's factor, its cell read and written
+    nbytes = 8 * n_e + 12 * n_u
+    bound = bound_ms(nbytes, 2 * n_e, F32_PEAK)
+    log(f"[device single] extras kernel ({label}): {n_e} extras on {n_u} "
+        f"distinct docs (up to {ranks} a doc), bit-equal to the plain "
+        f"version, two runs identical; device {ms:.4f} ms ({origin}, "
+        f"records {kept}), plain {plain_ms:.4f} ms ({ranks} index_add_ "
+        f"passes), index_add_ of all extras in one call {library_ms:.4f} "
+        f"ms; bound {bound[0]:.5f} ms by {bound[1]} ({nbytes} B), "
+        f"{bound[0] / ms:.1%} of the device time")
+    return dict(max_abs_err=err, ms=ms, origin=origin, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
+                bound_bytes=nbytes, extras=n_e, distinct_docs=n_u,
+                most_a_doc=ranks)
+
+
+def device_single_phase(torch, it, runtime, bench, eng, queries, _kernels):
+    """``DeviceIndex.search`` (the single-query device Stage 1) on the 1M
+    bench index: DEVICE_SINGLES bench queries, typo queries with their
+    fuzzy groups as extra postings, with the kernels' counts reset just
+    before and read just after (one lane launch a query with lanes, one
+    extras launch a query with extras, one epilogue pass and one top-k
+    each); ids exact and scores within rtol 1e-6 against ``search_batch``
+    on the same preps (bit-equal where a doc takes at most one extra); the
+    extras kernel against its plain version; the same searches on 4
+    shards of the card against the one-card route (bit-equal); and a
+    DEVICE_SINGLE_CROSS_DOCS-doc corpus on the CPU and on the card
+    (bit-equal)."""
+    import numpy as np
+
+    from infidex_tpu_torch.index import device as D
+    from infidex_tpu_torch.parallel.sharding import (ShardedDeviceIndex,
+                                                     make_mesh)
+
+    m = eng.vector_model
+    di = m.device
+    asked = [(q, m.prepare_stage1(q)) for q in queries[:DEVICE_SINGLES]]
+    texts = [q for q, p in asked if p is not None]
+    preps = [p for _, p in asked if p is not None]
+    extras = [device_extras(torch, m, p[2]) for p in preps]
+    n_extras = sum(e[0] is not None for e in extras)
+    check(n_extras > 0, "device single: no query brought extra postings")
+    with_lanes = sum(int(D.single_query_chunks(
+        di.built, t, i, di.n_pad, "cpu").off.numel() > 0)
+        for t, i, _ in preps)
+    K = DEVICE_SINGLE_K
+    di.search(*preps[0][:2], K, *extras[0])     # warm
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    walls, singles = [], []
+    for (t, i, _), (ed, ei) in zip(preps, extras):
+        t0 = time.perf_counter()
+        singles.append(di.search(t, i, K, ed, ei))
+        walls.append(time.perf_counter() - t0)
+    counts = dict(_kernels.launch_counts)
+    n = len(preps)
+    want = dict.fromkeys(counts, 0)
+    want.update(stage1_scatter_lanes=with_lanes, stage1_extras=n_extras,
+                stage1_epilogue=n, stage1_topk=n)
+    check(counts == want, f"device single: launches {counts}, expected "
+          f"{want} for {n} searches")
+    p50, p95 = percentiles_ms(walls)
+    log(f"[device single] {n} searches (top {K}) on {N_DOCS} docs, {n_extras}"
+        f" with extras ({sum(e[0].size for e in extras if e[0] is not None)}"
+        f" extra postings): host p50 {p50:.3f} ms, p95 {p95:.3f} ms; "
+        f"launches {counts}")
+
+    # against search_batch on the same preps
+    batch = di.search_batch(preps, K, total_docs=m.documents.count,
+                            stop_term_limit=m.stop_term_limit)
+    n_bits = n_multi = 0
+    for q, ((s_s, s_i), (b_s, b_i, _), (ed, _)) in enumerate(
+            zip(singles, batch, extras)):
+        check(np.array_equal(s_i, b_i), f"device single: query {q} "
+              f"({texts[q]!r}): ids differ from search_batch")
+        check(np.all(np.abs(s_s - b_s) <= 1e-6 * np.abs(b_s)),
+              f"device single: query {q}: scores beyond rtol 1e-6")
+        times = (np.bincount(ed, minlength=di.n_pad)[s_i] if ed is not None
+                 else np.zeros(s_i.size, np.int64))
+        once = times <= 1
+        check(np.array_equal(s_s[once].view(np.int32),
+                             b_s[once].view(np.int32)),
+              f"device single: query {q}: a doc with at most one extra "
+              f"differs from search_batch")
+        n_bits += int(np.sum(s_s.view(np.int32) == b_s.view(np.int32)))
+        n_multi += int((~once).sum())
+    found = sum(int((s > 0).any()) for s, _ in singles)
+    check(found >= 0.9 * n, f"device single: only {found}/{n} found anything")
+    log(f"[device single] ids equal to search_batch's on all {n} queries "
+        f"(top {K}); scores within rtol 1e-6, {n_bits}/{n * K} bit-equal "
+        f"({n_multi} entries are docs with several extras); {found}/{n} "
+        f"with hits")
+
+    # device ms of one search by kernel: the query with the most extras
+    big = max(range(n), key=lambda j: extras[j][0].size
+              if extras[j][0] is not None else -1)
+    by_kernel = device_by_kernel(
+        torch, lambda: di.search(*preps[big][:2], K, *extras[big]), 10)
+    log(f"[device single] device ms of one search ({texts[big]!r}, "
+        f"{extras[big][0].size} extras), by kernel: "
+        f"{ {k: round(v, 4) for k, v in by_kernel.items()} }, total "
+        f"{sum(by_kernel.values()):.4f} ms")
+
+    # the extras kernel against its plain version: the phase's largest
+    # extras set on its query's real row (after the lanes), and a synthetic
+    # set with many extras a doc on a random row
+    row = torch.zeros(di.n_pad, dtype=torch.float32, device=di.device)
+    cnt = torch.zeros_like(row)
+    from infidex_tpu_torch.ops import stage1_lanes as lanes
+    lanes.scatter_lanes(row, cnt, D.single_query_chunks(
+        di.built, *preps[big][:2], di.n_pad, di.device), di.postings_docs,
+        di.cfac, 0, di.n_pad)
+    real = extras_check(torch, _kernels, di, row, *extras[big],
+                        "largest set")
+    rng = np.random.default_rng(13)
+    pool = rng.choice(N_DOCS, EXTRAS_SYNTH_DOCS, replace=False)
+    s_docs = rng.choice(pool, EXTRAS_SYNTH).astype(np.int32)
+    s_idf = (rng.random(EXTRAS_SYNTH) * 10.0
+             ** rng.integers(-3, 3, EXTRAS_SYNTH)).astype(np.float32)
+    synth_row = torch.from_numpy(
+        (rng.random(di.n_pad) * 8).astype(np.float32)).to(di.device)
+    synth = extras_check(torch, _kernels, di, synth_row, s_docs, s_idf,
+                         "synthetic")
+
+    # 4 shards of the one card against the one-card route (no extras)
+    sdi = ShardedDeviceIndex(di.built, make_mesh(devices=["cuda:0"] * SHARDS))
+    _kernels.reset_launch_counts()
+    swalls, bad = [], []
+    for q, (t, i, _) in enumerate(preps):
+        t0 = time.perf_counter()
+        got = sdi.search(t, i, K)
+        swalls.append(time.perf_counter() - t0)
+        one = di.search(t, i, K)
+        if not (np.array_equal(got[1], one[1])
+                and np.array_equal(got[0].view(np.int32),
+                                   one[0].view(np.int32))):
+            bad.append(texts[q])
+    scounts = dict(_kernels.launch_counts)
+    check(not bad, f"device single: {SHARDS} shards differ from one card on "
+          f"{len(bad)} queries, e.g. {bad[:3]}")
+    check(scounts["stage1_topk"] == (SHARDS + 2) * n
+          and scounts["stage1_epilogue"] == (SHARDS + 1) * n,
+          f"device single: sharded launches {scounts}")
+    sp50, sp95 = percentiles_ms(swalls)
+    log(f"[device single] {SHARDS} shards on one card: all {n} searches "
+        f"bit-equal to the one-card route; host p50 {sp50:.3f} ms, p95 "
+        f"{sp95:.3f} ms")
+    del sdi
+
+    # the CPU route against the card's on a smaller corpus
+    titles = bench.make_corpus(DEVICE_SINGLE_CROSS_DOCS)
+    cq = bench.make_queries(titles, DEVICE_SINGLES)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        runtime.set_device(dev)
+        ceng = build_engine(it, titles)
+        cm = ceng.vector_model
+        check(cm.device.device.type == dev,
+              f"device single: index not on {dev}")
+        res = []
+        for q in cq:
+            p = cm.prepare_stage1(q)
+            if p is not None:
+                res.append(cm.device.search(p[0], p[1], K,
+                                            *device_extras(torch, cm, p[2])))
+        out[dev] = res
+        del ceng, cm
+    runtime.set_device("cuda")
+    check(len(out["cpu"]) == len(out["cuda"]) > 0,
+          "device single: the CPU and CUDA runs served other queries")
+    diff = [q for q, a, b in zip(cq, out["cpu"], out["cuda"])
+            if not (np.array_equal(a[1], b[1])
+                    and np.array_equal(a[0].view(np.int32),
+                                       b[0].view(np.int32)))]
+    check(not diff, f"device single: CPU and CUDA differ on {len(diff)} "
+          f"queries, e.g. {diff[:3]}")
+    log(f"[device single] {DEVICE_SINGLE_CROSS_DOCS} docs, "
+        f"{len(out['cpu'])} searches: CPU and CUDA identical (ids and f32 "
+        f"scores)")
+    return counts, dict(real, by_input={"largest set": real,
+                                        "synthetic": synth},
+                        search_p50_ms=p50, search_p95_ms=p95,
+                        sharded_p50_ms=sp50, sharded_p95_ms=sp95,
+                        search_device_ms_by_kernel=by_kernel)
+
+
 def big_vocab_corpus(bench, n: int):
     """bench.make_corpus's recipe (Zipf weight 1/(rank+10), 2-5 words,
     titles[0] the Shawshank title) over a BIG_VOCAB_WORDS-word list."""
@@ -2988,6 +3298,9 @@ def main(argv=None) -> int:
     if args.recall:
         timed("5 recall", recall_phase, it, eng, queries, bench)
     timed("6 single queries", single_query_phase, it, eng, queries)
+    single_counts, xk = timed("13 device single queries",
+                              device_single_phase, torch, it, runtime, bench,
+                              eng, queries, _kernels)
     pool_counts, pk = timed("11 pool scoring", pool_phase, torch, it, eng,
                             queries, resident, _kernels)
     shard_counts, shard_merges = timed("12 sharded", sharded_phase, torch,
@@ -3126,6 +3439,21 @@ def main(argv=None) -> int:
                            ("coverage_fusion", 1079))] + [
         epilogue_entry(name, counts, paths, per_batch, ek2)
         for name in EPILOGUE_REPLACES]
+    kernels.append({
+        # the single-query device path's launches (phase 13); the numbers
+        # of its largest extras set, both inputs under "by_input"
+        "name": "stage1_extras", "route": "cuda",
+        "source": "infidex_tpu_torch/csrc/stage1_extras.cu",
+        "replaces": "infidex_tpu/index/device.py:302",
+        "launches": single_counts["stage1_extras"],
+        "launches_single_path": single_counts,
+        "max_abs_err": xk["max_abs_err"], "ms": xk["ms"],
+        "plain_ms": xk["plain_ms"], "bound_ms": xk["bound_ms"],
+        "bound_by": xk["bound_by"], "library_ms": xk["library_ms"],
+        **{key: xk[key] for key in (
+            "origin", "by_input", "search_p50_ms", "search_p95_ms",
+            "sharded_p50_ms", "sharded_p95_ms",
+            "search_device_ms_by_kernel")}})
     # the top-k kernel also merges the shards' lists (phase 12)
     next(e for e in kernels if e["name"] == "stage1_topk")["shard_merges"] = \
         shard_merges

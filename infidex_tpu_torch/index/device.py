@@ -19,6 +19,12 @@ adding the groups, applying the live mask and taking the row max of the
 counts; ``csrc/stage1_topk.cu``; ``csrc/stage1_lim.cu``), reached through
 the dispatchers below; CPU tensors take their plain versions.
 
+``DeviceIndex.search`` is the single-query route (the reference's
+``_stage1_kernel``): the lane kernel on one row, the query's explicit
+fuzzy extra postings (host-materialised doc unions, tf = 1) added after
+its lanes by ``csrc/stage1_extras.cu`` (dispatcher ``stage1_extras``),
+then the epilogue pass (the live mask only) and the top-k kernel.
+
 Every f32 operation is rounded on its own (no FMA contraction, no
 atomics, no TF32), so CPU and CUDA give the same bits: the lane scatter
 keeps the reference's serial per-cell addition order (see
@@ -114,8 +120,9 @@ def stable_top_k_plain(scores: torch.Tensor, k: int):
 
 
 def _use_plain(t: torch.Tensor) -> bool:
-    """The epilogue dispatchers' route: plain PyTorch for CPU tensors,
-    the kernels for every other device (CUDA; elsewhere they raise)."""
+    """The Stage-1 dispatchers' route (the epilogue's and the extras'):
+    plain PyTorch for CPU tensors, the kernels for every other device
+    (CUDA; elsewhere they raise)."""
     return t.device.type == "cpu"
 
 
@@ -292,6 +299,70 @@ def fuzzy_doc_factor(doc_lengths, avgdl):
                         device=doc_lengths.device) / (1.0 + fnorm) + DELTA
 
 
+class ExtrasTable(NamedTuple):
+    """A single query's extra postings doc-major (``extras_table``), as
+    ``csrc/stage1_extras.cu`` reads them: views of one int32 upload."""
+
+    docs: torch.Tensor     # int32 [U] distinct docs, ascending
+    off: torch.Tensor      # int32 [U + 1] first extra of each doc
+    idf: torch.Tensor      # f32 [E] the extras' idfs, doc-major
+
+
+def _extras_host(extra_docs, extra_idf, width: int):
+    """(docs int64 [E], idf f32 [E]) of a query's extra postings, checked:
+    as many idfs as docs, every doc inside the score row."""
+    docs = np.asarray(extra_docs, np.int64).reshape(-1)
+    idf = np.asarray(extra_idf, np.float32).reshape(-1)
+    if idf.size != docs.size:
+        raise ValueError(f"extra postings: {docs.size} docs, {idf.size} idfs")
+    if docs.size and (docs.min() < 0 or docs.max() >= width):
+        raise ValueError(f"extra postings: a doc outside [0, {width})")
+    return docs, idf
+
+
+def extras_table(extra_docs, extra_idf, dev) -> ExtrasTable:
+    """The extras grouped by doc (a stable sort, so each doc keeps its
+    extras in array order), uploaded to ``dev`` in one copy."""
+    order = np.argsort(extra_docs, kind="stable")
+    docs = extra_docs[order]
+    first = np.flatnonzero(np.r_[True, docs[1:] != docs[:-1]])
+    n_u = first.size
+    buf = _upload(np.concatenate([
+        docs[first], first, [docs.size],
+        extra_idf[order].view(np.int32)]).astype(np.int32), dev)
+    return ExtrasTable(buf[:n_u], buf[n_u:2 * n_u + 1],
+                       buf[2 * n_u + 1:].view(torch.float32))
+
+
+def stage1_extras_plain(scores, extra_docs, extra_idf, doc_fac) -> None:
+    """Plain version of ``stage1_extras``: one ``index_add_`` per
+    occurrence rank (each doc's first extras, then its second ones, ...),
+    so that each cell adds its extras one at a time in array order."""
+    dev = scores.device
+    rank = lanes.owner_ranks(extra_docs)
+    for r in range(int(rank.max(initial=-1)) + 1):
+        sel = np.flatnonzero(rank == r)
+        d = torch.from_numpy(extra_docs[sel]).to(dev)
+        idf = torch.from_numpy(extra_idf[sel]).to(dev)
+        scores.index_add_(0, d, idf * doc_fac[d])
+
+
+def stage1_extras(scores, extra_docs, extra_idf, doc_fac) -> None:
+    """In place on one query's score row (f32 [width]): each explicit
+    fuzzy extra posting (``extra_docs`` with ``extra_idf``, host arrays;
+    a doc may repeat) adds ``idf * doc_fac[doc]``, a doc's extras in array
+    order. CPU tensors take the plain version; CUDA tensors
+    ``csrc/stage1_extras.cu`` over the doc-major ``extras_table``."""
+    docs, idf = _extras_host(extra_docs, extra_idf, scores.numel())
+    if docs.size == 0:
+        return
+    if _use_plain(scores):
+        stage1_extras_plain(scores, docs, idf, doc_fac)
+        return
+    t = extras_table(docs, idf, scores.device)
+    _kernels.stage1_extras(scores, t.docs, t.off, t.idf, doc_fac)
+
+
 def _fuzzy_apply(scores, cnt, presence, fidf, doc_fac, grp_query,
                  n_q: int):
     """The fuzzy groups' scores and counts over the docs of ``presence``
@@ -415,6 +486,30 @@ def term_device_range(built: BuiltIndex, tid: int):
         return int(cs[tid]), built.champion_len
     s = int(built.term_offsets[tid])
     return s, int(built.term_offsets[tid + 1]) - s
+
+
+def single_query_chunks(built: BuiltIndex, term_ids, term_idf, width: int,
+                        device) -> lanes.QueryChunks:
+    """The lane kernel's chunk table of ONE query's terms (their device
+    ranges, ``term_device_range``) over a score row of ``width`` cells,
+    on ``device``."""
+    ranges = [term_device_range(built, int(t))
+              for t in np.asarray(term_ids, np.int64).reshape(-1)]
+    starts = np.asarray([r[0] for r in ranges], np.int64)
+    lens = np.asarray([r[1] for r in ranges], np.int64)
+    idfs = np.asarray(term_idf, np.float32).reshape(-1)[:len(ranges)]
+    return lanes.build_query_chunks(starts, lens, idfs,
+                                    np.zeros(len(ranges), np.int64), 1,
+                                    width, device)
+
+
+def read_top_k(scores, ids):
+    """(scores f32[k], ids int32[k]) numpy arrays of a [1, k] top-k, in
+    one readback."""
+    k = scores.shape[-1]
+    row = torch.cat([scores.reshape(1, k).view(torch.int32),
+                     ids.reshape(1, k).to(torch.int32)], dim=1).cpu().numpy()
+    return row[0, :k].view(np.float32), row[0, k:]
 
 
 def prepare_batch_arrays(built: BuiltIndex, queries):
@@ -589,6 +684,30 @@ class DeviceIndex:
             self._mask_cache.clear()
         self._mask_cache[key] = (mask, buf)
         return buf
+
+    def search(self, term_ids, term_idf, top_k: int, extra_docs=None,
+               extra_idf=None):
+        """Score one query's terms (by id, with their idfs) and its
+        explicit fuzzy extra postings (``extra_docs`` with ``extra_idf``:
+        the doc unions of its typo tokens' matched terms, tf = 1, a doc
+        may repeat); return the top-k by (score desc, id asc) as
+        (scores f32[k], internal doc ids int32[k]) numpy arrays, k =
+        min(top_k, n_pad). Entries with score <= 0 are non-matches.
+
+        On a card: one lane-kernel launch (none without lanes), one
+        extras launch where there are extras, one epilogue pass (the live
+        mask) and one top-k launch, then one readback."""
+        dev, n_pad = self.device, self.n_pad
+        scores = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+        cnt = torch.zeros_like(scores)
+        lanes.scatter_lanes(scores, cnt, single_query_chunks(
+            self.built, term_ids, term_idf, n_pad, dev), self.postings_docs,
+            self.cfac, 0, n_pad)
+        if extra_docs is not None:
+            stage1_extras(scores, extra_docs, extra_idf, self.doc_fac)
+        scores = stage1_epilogue(scores.view(1, n_pad), cnt.view(1, n_pad),
+                                 self.live_mask, None, None, None, None)[0]
+        return read_top_k(*stable_top_k(scores, min(int(top_k), n_pad)))
 
     def _max_q(self) -> int:
         # flat scatter keys are query*n_pad + doc in int32

@@ -42,7 +42,7 @@ launch_counts = {"stage1_scatter_lanes": 0, "fuzzy_match": 0,
                  "pool_score": 0, "coverage_gather": 0, "coverage_pairs": 0,
                  "coverage_cascade": 0, "coverage_lcs": 0,
                  "coverage_fusion": 0, "stage1_fuzzy": 0, "stage1_epilogue": 0,
-                 "stage1_topk": 0, "stage1_lim": 0}
+                 "stage1_topk": 0, "stage1_lim": 0, "stage1_extras": 0}
 
 #: char widths ``csrc/coverage_pairs.cu`` is compiled for (the coverage
 #: program's L_CAP_SMALL and L_MAX)
@@ -125,6 +125,7 @@ def bind(lib):
             ("stage1_topk", [p, ll, i, i, i, i, i, p, ll, p, p, p]),
             ("stage1_lim", [p, ll, i, p, p, p, ll, p, p, p, i, ll, i, i, i, i,
                             p, i, i, p, p]),
+            ("stage1_extras", [p, p, p, p, p, i, p]),
             ("stage1_topk_clusters", [i, i]),
             ("stage1_lim_clusters", [i])):
         if hasattr(lib, name):
@@ -874,6 +875,32 @@ def stage1_fuzzy(postings_docs, starts, group, cum, n_lanes: int,
     return bits, df
 
 
+def stage1_extras(scores, docs, off, idf, doc_fac, *, lib=None):
+    """``csrc/stage1_extras.cu``, in place on ``scores`` (f32 [width]; see
+    ``index/device.py stage1_extras``): a single query's extra postings
+    in the doc-major table ``extras_table`` builds: ``docs`` int32 [U]
+    distinct, each below width; ``off`` int32 [U + 1], doc u's extras
+    ``idf[off[u]:off[u + 1]]`` (f32, in their array order); ``doc_fac``
+    f32 [width]. Each doc's cell gains ``idf * doc_fac[doc]`` per extra,
+    in order. One launch, none without docs."""
+    dev = scores.device
+    i32, f32 = torch.int32, torch.float32
+    for name, t, dt in (("scores", scores, f32), ("docs", docs, i32),
+                        ("off", off, i32), ("idf", idf, f32),
+                        ("doc_fac", doc_fac, f32)):
+        _check(name, t, dt, dev)
+    n_docs = docs.numel()
+    if off.numel() != n_docs + 1 or idf.numel() < n_docs:
+        raise ValueError("stage1_extras: bad doc-major table")
+    if doc_fac.numel() != scores.numel():
+        raise ValueError("stage1_extras: doc_fac and scores differ in width")
+    if n_docs == 0:
+        return
+    _run_kernel("stage1_extras", lib, dev, lambda lb, stream: lb.stage1_extras(
+        scores.data_ptr(), docs.data_ptr(), off.data_ptr(), idf.data_ptr(),
+        doc_fac.data_ptr(), n_docs, stream))
+
+
 def stage1_epilogue(scores, cnt, live, bits, fidf, doc_fac, q_off, q_grp,
                     *, lib=None):
     """``csrc/stage1_epilogue.cu``, in place on ``scores`` and ``cnt``
@@ -910,8 +937,6 @@ def stage1_epilogue(scores, cnt, live, bits, fidf, doc_fac, q_off, q_grp,
                         doc_fac.data_ptr() if has_fz else None, ptrs[2],
                         ptrs[3], has_fz, rowmax.data_ptr(), stream))
     return rowmax.view(f32)
-
-
 
 
 _resident = {}

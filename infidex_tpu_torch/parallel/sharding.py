@@ -37,10 +37,12 @@ and each shard scores its own with the port's coverage program over its
 table slice, with no text table (the fake-LCS runs on the host, as on the
 reference's mesh).
 
-Not ported: ``sharded_stage1_topk`` and ``ShardedDeviceIndex.search``,
-the single-query route that only the reference's own tests and
-``__graft_entry__`` call (like ``DeviceIndex.search``); nor the
-reference's 2^24-document cap, which exists for its f32 id readback.
+``ShardedDeviceIndex.search`` is the single-query route (the reference's
+``sharded_stage1_topk``): each shard scatters the query's lanes in its
+doc window, applies its live mask and takes its own top-k; the lists
+merge as a batch's do. It returns ``DeviceIndex.search``'s ids and scores
+bit for bit. Not ported: the reference's 2^24-document cap, which exists
+for its f32 id readback.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from .. import runtime
 from ..index.device import (_LIM_PAD, DeviceIndex, LIM_K, LIM_WINDOW,
                             fuzzy_doc_factor, fuzzy_groups, fuzzy_idf,
                             fuzzy_presence, lim_rows, prepare_batch_arrays,
+                            read_top_k, single_query_chunks,
                             split_batch_by_lanes, stable_top_k,
                             stage1_epilogue)
 from ..ops import stage1_lanes as lanes
@@ -193,6 +196,33 @@ class ShardedDeviceIndex:
         full = {dev: _upload(live, dev) for dev in _distinct(self.mesh)}
         self.live_mask = [full[dev][lo:lo + self.shard_size]
                           for lo, dev in self._shards()]
+
+    def search(self, term_ids, term_idf, top_k: int):
+        """Mesh twin of ``DeviceIndex.search`` without extra postings (as
+        the reference's): the lane kernel over each shard's doc window,
+        its live mask (the epilogue pass) and its own top-k of
+        min(top_k, shard_size), ids made global; the lists merged on the
+        first shard's device. Returns (scores f32[k], ids int32[k])
+        numpy arrays, k = min(top_k, n_pad)."""
+        size, dev0 = self.shard_size, self.mesh[0]
+        chunks = {dev: single_query_chunks(self.built, term_ids, term_idf,
+                                           size, dev)
+                  for dev in self._replicas}
+        k = min(int(top_k), self.n_pad)
+        tops_s, tops_i = [], []
+        for s, (lo, dev) in enumerate(self._shards()):
+            rep = self._replicas[dev]
+            scores = torch.zeros((1, size), dtype=_F32, device=dev)
+            cnt = torch.zeros_like(scores)
+            lanes.scatter_lanes(scores.view(-1), cnt.view(-1), chunks[dev],
+                                rep.postings_docs, rep.cfac, lo, lo + size)
+            scores = stage1_epilogue(scores, cnt, self.live_mask[s], None,
+                                     None, None, None)[0]
+            top_s, top_i = stable_top_k(scores, min(k, size))
+            tops_s.append(top_s.to(dev0))
+            tops_i.append((top_i.long() + lo).to(dev0))
+        return read_top_k(*_stable_merge(torch.cat(tops_s, dim=1),
+                                         torch.cat(tops_i, dim=1), k))
 
     def search_batch(self, queries, top_k: int,
                      total_docs: Optional[int] = None,

@@ -23,7 +23,13 @@ reference.
 * the plain word relations (``_pairwise_primitives``, ``_q_startswith_d_t``)
   against the JAX functions of the same names, and the pair word's
   packing: exactly equal;
-* on a card, the kernel against the plain version: exactly equal.
+* on a card, the kernel against the plain version: exactly equal;
+* the single-token functions of ops/editdistance.py
+  (``batched_levenshtein``, ``batched_damerau``, ``_batched_lev_pairwise``,
+  ``_propagate_insertions``) against the JAX functions of the same names,
+  edges included (empty words, doc lengths past L, L below the query
+  width), and against the scalar oracles of ``utils.metrics``: exactly
+  equal.
 
 Inputs are made with numpy from a seed: words over a five-letter alphabet,
 query words derived from their candidate's doc words by edits, at the
@@ -41,11 +47,14 @@ import pytest
 import torch
 
 from infidex_tpu.ops import coverage_kernel as ref_ck
+from infidex_tpu.ops import editdistance as ref_single
 from infidex_tpu.ops import editdistance_multi as ref_ed
 from infidex_tpu_torch import runtime
 from infidex_tpu_torch.ops import _kernels
 from infidex_tpu_torch.ops import coverage_kernel as port_ck
+from infidex_tpu_torch.ops import editdistance as port_single
 from infidex_tpu_torch.ops import editdistance_multi as port_ed
+from infidex_tpu_torch.utils.metrics import calculate_damerau, levenshtein
 
 runtime.set_device("cpu")
 # the suite runs in several worker processes on shared cores; one intra-op
@@ -506,6 +515,101 @@ def test_cpu_tensors_never_reach_the_kernel_wrapper():
     with pytest.raises(ValueError):
         _kernels.coverage_pair_block((z, z, z[:, 0]), (z, z, z[:, 0]), zt, zt,
                                      z[:, 0], z[:, 0] > 0)
+
+
+# --- one query token against [C, D] doc tokens (ops/editdistance.py) -------
+
+
+def _single_inputs(seed, L, lq):
+    """A query of up to ``lq`` chars and [4, 6] doc words over three
+    letters (edits of the query among them), zero-padded to ``L`` chars;
+    some doc lengths run past L (their chars cut at L), some words are
+    empty."""
+    rng = np.random.default_rng(seed)
+    ql = int(rng.integers(0, lq + 1))
+    q = list(97 + rng.integers(0, 3, ql))
+    words = []
+    for i in range(24):
+        w = (_edit(rng, q, int(rng.integers(1, 3))) if i % 2
+             else list(97 + rng.integers(0, 3, int(rng.integers(0, L + 3)))))
+        words.append(w)
+    chars = np.zeros((4, 6, L), np.int32)
+    lens = np.zeros((4, 6), np.int32)
+    for i, w in enumerate(words):
+        lens.flat[i] = len(w)
+        chars[i // 6, i % 6, :min(len(w), L)] = w[:L]
+    q_arr = np.zeros(lq, np.int32)
+    q_arr[:ql] = q[:lq]
+    return q_arr, np.int32(ql), chars, lens, q, words
+
+
+#: (L, Lq): the reference test's shape, and L below and above the query
+#: width
+SINGLE_SHAPES = [(16, 16), (6, 12), (12, 8)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("shape", SINGLE_SHAPES,
+                         ids=lambda s: "L%d_lq%d" % s)
+def test_single_token_distances_equal_the_reference(shape, seed):
+    L, lq = shape
+    q_arr, ql, chars, lens, q, words = _single_inputs(
+        10 * seed + SINGLE_SHAPES.index(shape), L, lq)
+    for budget in (0, 1, 2, 3):
+        got = port_single.batched_levenshtein(q_arr, ql, chars, lens,
+                                              budget=budget, l_max=L)
+        want = ref_single.batched_levenshtein(q_arr, ql, chars, lens,
+                                              budget=budget, l_max=L)
+        assert got.dtype == torch.int32 and got.shape == (4, 6)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    for md in (0, 1, 2, 3):
+        got = port_single.batched_damerau(q_arr, ql, chars, lens,
+                                          max_distance=md, l_max=L)
+        want = ref_single.batched_damerau(q_arr, ql, chars, lens,
+                                          max_distance=md, l_max=L)
+        assert np.array_equal(got.numpy(), np.asarray(want)), md
+    # both sides per pair: each doc word against the reversed next one
+    rev = np.ascontiguousarray(chars[:, :, ::-1])
+    for budget in (0, 2):
+        got = port_single._batched_lev_pairwise(chars, lens, rev, lens,
+                                                budget=budget, l_max=L)
+        want = ref_single._batched_lev_pairwise(
+            jnp.asarray(chars), jnp.asarray(lens), jnp.asarray(rev),
+            jnp.asarray(lens), budget=budget, l_max=L)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_single_token_distances_equal_the_scalar_oracles():
+    """Words of at most L chars: Levenshtein clamped at budget + 1 equals
+    ``levenshtein``; Damerau agrees with ``calculate_damerau`` on every
+    pair within the max distance (both clamp differently above it)."""
+    L, lq = 16, 16
+    hits = 0
+    for seed in range(6):
+        q_arr, ql, chars, lens, q, words = _single_inputs(100 + seed, L, lq)
+        qs = "".join(map(chr, q))
+        ws = ["".join(map(chr, w[:L])) for w in words]
+        lens = np.minimum(lens, L)
+        lev = port_single.batched_levenshtein(q_arr, ql, chars, lens,
+                                              budget=3, l_max=L).numpy()
+        dam = port_single.batched_damerau(q_arr, ql, chars, lens,
+                                          max_distance=2, l_max=L).numpy()
+        for i, w in enumerate(ws):
+            assert lev.flat[i] == min(levenshtein(qs, w), 4), (qs, w)
+            want = calculate_damerau(qs, w, 2)
+            assert (dam.flat[i] <= 2) == (want <= 2), (qs, w)
+            if want <= 2:
+                assert dam.flat[i] == want, (qs, w)
+                hits += 1
+    assert hits > 20
+
+
+def test_propagate_insertions_equals_the_reference():
+    rng = np.random.default_rng(3)
+    row = rng.integers(0, 9, (3, 5, 17)).astype(np.int32)
+    got = port_single._propagate_insertions(torch.from_numpy(row))
+    want = ref_single._propagate_insertions(jnp.asarray(row))
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 # --- pair words: the relations beside the distances ------------------------

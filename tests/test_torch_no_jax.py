@@ -145,6 +145,42 @@ res = peng.search_batch([it.Query(q, 5) for q in
 assert calls, "the device pool scorer was not used"
 assert res[0].records and res[1].records
 """,
+    # the single-query device Stage 1 (index/device.py DeviceIndex.search)
+    # with a typo token's extra postings
+    "device_search": r"""
+import numpy as np
+m = eng.vector_model
+t, i, groups = m.prepare_stage1("shawshenk redemption")
+extra = np.concatenate([m.built.postings_for(int(x))[0] for g in groups
+                        for x in g] + [np.asarray([0, 2, 0], np.int32)])
+scores, ids = m.device.search(t, i, 5, extra.astype(np.int32),
+                              np.ones(extra.size, np.float32))
+assert ids[0] == 0 and scores[0] > 0, (scores, ids)
+""",
+    # the single-query sharded Stage 1 (parallel/sharding.py)
+    "sharded_search": r"""
+from infidex_tpu_torch.parallel.sharding import ShardedDeviceIndex, make_mesh
+m = eng.vector_model
+t, i, _ = m.prepare_stage1("shawshank redemption")
+got = ShardedDeviceIndex(m.built, make_mesh(n_devices=4)).search(t, i, 5)
+want = m.device.search(t, i, 5)
+assert (got[1] == want[1]).all() and (got[0] == want[0]).all()
+assert got[1][0] == 0
+""",
+    # the single-token edit distances (ops/editdistance.py)
+    "editdistance": r"""
+import numpy as np
+from infidex_tpu_torch.ops.editdistance import (batched_damerau,
+                                                 batched_levenshtein)
+q = np.zeros(8, np.int32)
+q[:4] = [ord(c) for c in "abcd"]
+d = np.zeros((1, 2, 8), np.int32)
+d[0, 0, :4] = [ord(c) for c in "abdc"]
+d[0, 1, :3] = [ord(c) for c in "abc"]
+lens = np.asarray([[4, 3]], np.int32)
+assert batched_levenshtein(q, 4, d, lens, budget=2, l_max=8).tolist() == [[2, 1]]
+assert batched_damerau(q, 4, d, lens, max_distance=1, l_max=8).tolist() == [[1, 1]]
+""",
 }
 
 
@@ -166,6 +202,7 @@ def test_port_serves_without_importing_jax():
 
 @pytest.mark.parametrize("case", ["search", "search_async", "append",
                                   "signature", "mmap", "facets", "sharded",
-                                  "pool"])
+                                  "pool", "device_search", "sharded_search",
+                                  "editdistance"])
 def test_entry_point_runs_without_importing_jax(case):
     _run(case)

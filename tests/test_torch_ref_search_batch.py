@@ -6,12 +6,8 @@ names bound to the port's objects (the rebinding of
 tests/test_torch_entry_points.py); imports inside a test body resolve to
 the port's modules too.
 
-Left out:
-
-* ``test_stage1_device_batch_matches_single``: it calls
-  ``DeviceIndex.search``, the single-query device route that the port does
-  not carry (ROADMAP, "Do not port").
-* ``test_replay_last_s1``: TPU link tooling (ROADMAP, "Do not port").
+Left out: ``test_replay_last_s1``, TPU link tooling (ROADMAP, "Do not
+port").
 """
 
 from tests import test_search_batch as suite
@@ -33,6 +29,8 @@ test_batch_matches_sequential_device_path = \
 test_batch_mixed_params = suite.test_batch_mixed_params
 test_batch_with_facets_and_filter = suite.test_batch_with_facets_and_filter
 test_batch_empty_and_single = suite.test_batch_empty_and_single
+test_stage1_device_batch_matches_single = \
+    suite.test_stage1_device_batch_matches_single
 test_split_batch_by_lanes = suite.test_split_batch_by_lanes
 test_champion_clipping_bounds_device_lanes = \
     suite.test_champion_clipping_bounds_device_lanes

@@ -12,9 +12,10 @@ against the reference's shard_map programs (JAX on the conftest's
   rows bit-equal;
 * ``sharded_coverage_batch`` against the reference's: score row within 1
   ulp, integer rows exact;
-* the tests of tests/test_sharded_engine.py and two of
-  tests/test_sharding.py, imported and run with their module's reference
-  names bound to the port's;
+* the tests of tests/test_sharded_engine.py and tests/test_sharding.py,
+  imported and run with their module's reference names bound to the
+  port's (``test_sharded_matches_single``: the single-query
+  ``ShardedDeviceIndex.search`` against ``DeviceIndex.search``);
 * whole engines: 8 and 3 shards against a one-shard mesh on the bench
   corpus (identical records), and the reference's sharded engine against
   the port's (ids exact, scores within 1 ulp).
@@ -298,6 +299,7 @@ test_sharded_delete_documents = engine_tests.test_sharded_delete_documents
 test_reindex_keeps_sharding = engine_tests.test_reindex_keeps_sharding
 
 model = sharding_tests.model
+test_sharded_matches_single = sharding_tests.test_sharded_matches_single
 test_mesh_shapes = sharding_tests.test_mesh_shapes
 
 
