@@ -214,43 +214,60 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
 def device_ms_each(torch, fns, kernel: str, reps: int,
                    launches: list = None):
     """Mean device milliseconds of the kernel whose name contains
-    ``kernel``, for each function of ``fns`` in turn, from a torch.profiler
-    session of its own: the kernel alone, where ``cuda_ms`` (events around
+    ``kernel``, for each function of ``fns`` in turn, from torch.profiler
+    sessions of its own: the kernel alone, where ``cuda_ms`` (events around
     back-to-back calls) also holds the wrapper's host time whenever that is
-    the longer. Each function (run once before) is run ``reps`` times and
-    launches the kernel once a run. With a list for ``launches``, each
-    function's launch as the profiler's trace recorded it (grid, block,
-    registers a thread, shared memory bytes; one for all its launches) is
-    appended there. A session whose records miss any of its launches is
-    taken again, up to three sessions (on an H100 sessions have dropped a
-    record now and then); a function none of whose sessions holds every
-    launch fails the phase."""
+    the longer. Each function (run once before, and held by its caller to
+    one launch a call) is run ``reps`` times a session, between two small
+    torch kernels, so that neither end of the session's records is the
+    kernel's. A session may drop records (on an H100 three sessions in a
+    row have each kept 19 of 20, and three others none), never add one:
+    sessions are taken until they have kept ``reps`` records together, at
+    most sixteen, and the time is the mean over the kept records; a
+    function whose sessions keep fewer, or a session that keeps more
+    records than it made calls, fails the phase. With a list for
+    ``launches``, each function's launch as the profiler's trace recorded
+    it (grid, block, registers a thread, shared memory bytes; one for all
+    its launches in all its sessions) is appended there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    pad = torch.zeros(1, device="cuda")
     out = []
     for fn in fns:
-        for _ in range(3):
+        kept, seen, sessions = [], set(), 0
+        while len(kept) < reps and sessions < 16:
+            sessions += 1
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pad.add_(1)
                 for _ in range(reps):
                     fn()
+                pad.add_(1)
                 torch.cuda.synchronize()
-            events = [e for e in prof.events() if e.device_type
-                      == DeviceType.CUDA and kernel in e.name]
-            if len(events) == reps:
-                break
-        check(len(events) == reps,
-              f"the profiler saw {len(events)} launches of {kernel} in a "
-              f"session of {reps} calls (block {len(out) + 1} of "
-              f"{len(fns)})")
+            events = [e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and kernel in e.name]
+            check(len(events) <= reps,
+                  f"the profiler saw {len(events)} launches of {kernel} in "
+                  f"a session of {reps} calls (block {len(out) + 1} of "
+                  f"{len(fns)})")
+            kept.extend(events)
+            if launches is not None and events:
+                seen |= traced_launches(prof, kernel)
+        check(len(kept) >= reps,
+              f"the profiler kept {len(kept)} of the {sessions * reps} "
+              f"launches of {kernel} in {sessions} sessions (block "
+              f"{len(out) + 1} of {len(fns)})")
+        if sessions > 1:
+            log(f"[profiler] {kernel}, block {len(out) + 1} of {len(fns)}: "
+                f"{len(kept)} of {sessions * reps} launches kept in "
+                f"{sessions} sessions")
         if launches is not None:
-            traced = traced_launches(prof, kernel, reps)
-            check(len(traced) == 1, f"the profiler's trace holds "
-                  f"{len(traced)} groups of {kernel} launches, not 1")
-            launches.extend(traced)
-        out.append(sum(e.time_range.elapsed_us() for e in events)
-                   / reps / 1e3)
+            check(len(seen) == 1, f"the launches of {kernel} in one block "
+                  f"differ or have no trace record: {sorted(seen)}")
+            launches.append(json.loads(seen.pop()))
+        out.append(sum(kept) / len(kept) / 1e3)
     return out
 
 
@@ -271,33 +288,25 @@ def device_total_ms(torch, fn, reps: int):
             len(events) / reps)
 
 
-def traced_launches(prof, kernel: str, reps: int) -> list:
-    """The launch of each group of ``reps`` kernel events whose name
-    contains ``kernel`` in a finished torch.profiler session, in launch
-    order, from its trace's kernel records: grid, block, registers a thread
-    and shared memory bytes (static and dynamic); the group's launches must
-    agree."""
+def traced_launches(prof, kernel: str) -> set:
+    """The launches of the kernel whose name contains ``kernel`` in a
+    finished torch.profiler session, from its trace's kernel records: the
+    distinct (grid, block, registers a thread, shared memory bytes static
+    and dynamic) as JSON strings."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    records = sorted((e for e in trace["traceEvents"]
-                      if e.get("cat") == "kernel"
-                      and kernel in e.get("name", "")),
-                     key=lambda e: e["ts"])
-    out = []
-    for i in range(0, len(records), reps):
-        group = {json.dumps({k: e["args"].get(k) for k in (
-            "grid", "block", "registers per thread", "shared memory")})
-            for e in records[i:i + reps]}
-        check(len(group) == 1, f"the launches of {kernel} in one group "
-              f"differ: {sorted(group)}")
-        launch = json.loads(group.pop())
-        check(all(launch[k] is not None for k in launch),
-              f"the profiler's trace has no launch geometry for {kernel}: "
-              f"{launch}")
-        out.append(launch)
+    out = set()
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "kernel" and kernel in e.get("name", ""):
+            launch = {k: e["args"].get(k) for k in (
+                "grid", "block", "registers per thread", "shared memory")}
+            check(all(launch[k] is not None for k in launch),
+                  f"the profiler's trace has no launch geometry for "
+                  f"{kernel}: {launch}")
+            out.add(json.dumps(launch))
     return out
 
 
