@@ -1,0 +1,17 @@
+"""CPU tests of the benchmark (``python -m pytest benchmark/tests -q``).
+
+Tests that need a CUDA card carry the ``gpu`` marker and decide inside
+the test whether one is there."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped without one")
