@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..utils.metrics import calculate_damerau
 from .setup import CoverageSetup
 
@@ -816,30 +817,31 @@ class CoverageEngine:
         return ts.delimiter_set if ts is not None else {" "}
 
     def prepare_query(self, query: str) -> CoverageQueryContext:
-        if not query:
-            return CoverageQueryContext(query, [], [], [], None)
-        tokens = tokenize_slices(query, self._setup.min_word_size, self._delims())
-        if not tokens:
-            return CoverageQueryContext(query, [], [], [], None)
-        tokens = dedupe_tokens(tokens)
+        with tracing.span("coverage.prepare_query"):
+            if not query:
+                return CoverageQueryContext(query, [], [], [], None)
+            tokens = tokenize_slices(query, self._setup.min_word_size, self._delims())
+            if not tokens:
+                return CoverageQueryContext(query, [], [], [], None)
+            tokens = dedupe_tokens(tokens)
 
-        if self._term_dict is not None and self._total_documents > 0:
-            cached = self._query_idf_cache.get(query)
-            if cached is None or len(cached) < len(tokens):
-                cached = [self._compute_term_idf(t.lower) for t in tokens]
-                self._query_idf_cache[query] = cached
-            term_idf = cached[: len(tokens)]
-        else:
-            term_idf = [float(np.log2(t.length + 1)) for t in tokens]
+            if self._term_dict is not None and self._total_documents > 0:
+                cached = self._query_idf_cache.get(query)
+                if cached is None or len(cached) < len(tokens):
+                    cached = [self._compute_term_idf(t.lower) for t in tokens]
+                    self._query_idf_cache[query] = cached
+                term_idf = cached[: len(tokens)]
+            else:
+                term_idf = [float(np.log2(t.length + 1)) for t in tokens]
 
-        term_max_chars = [t.length for t in tokens]
+            term_max_chars = [t.length for t in tokens]
 
-        word_level_idf = None
-        if self._word_idf_cache is not None:
-            word_level_idf = [
-                self._word_idf_cache.get(t.lower, 0.0) for t in tokens
-            ]
-        return CoverageQueryContext(query, tokens, term_idf, term_max_chars, word_level_idf)
+            word_level_idf = None
+            if self._word_idf_cache is not None:
+                word_level_idf = [
+                    self._word_idf_cache.get(t.lower, 0.0) for t in tokens
+                ]
+            return CoverageQueryContext(query, tokens, term_idf, term_max_chars, word_level_idf)
 
     def _compute_term_idf(self, term: str) -> float:
         """Average idf over constituent n-grams (CoverageEngine.cs:388-427)."""

@@ -12,6 +12,7 @@ from __future__ import annotations
 import enum
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
+from . import tracing
 from .api.fields import DocumentFields
 from .api.query import INT_MAX, Query, Result
 from .core import facets as facet_builder
@@ -37,9 +38,17 @@ class SearchEngineStatus(enum.Enum):
 
 
 class IndexStatistics:
-    def __init__(self, document_count: int, vocabulary_size: int):
+    """``build_seconds``: seconds of each phase of the last
+    ``index_documents`` (``bulk_index`` or ``index_documents``,
+    ``inverted_lists``, ``word_matcher``, ``optimized_indexes``,
+    ``short_query_resolver``, ``invalidate_caches``); empty before the
+    first."""
+
+    def __init__(self, document_count: int, vocabulary_size: int,
+                 build_seconds: Optional[Dict[str, float]] = None):
         self.document_count = document_count
         self.vocabulary_size = vocabulary_size
+        self.build_seconds = dict(build_seconds or {})
 
     def __repr__(self) -> str:
         return f"{self.document_count} documents, {self.vocabulary_size} terms"
@@ -87,6 +96,7 @@ class SearchEngine:
             self._word_matcher, synonym_map)
 
         self._is_indexed = False
+        self._build_seconds: Dict[str, float] = {}
         self._document_field_schema: Optional[DocumentFields] = None
         self._compiled_filter_cache: Dict = {}
         # Columnar attribute image for vectorized filters/facets (SURVEY
@@ -153,30 +163,48 @@ class SearchEngine:
                 and doc_list[0].fields is not None:
             self._document_field_schema = doc_list[0].fields
 
-        if self._can_bulk_index(doc_list):
-            self._vector_model.bulk_index_documents(
-                doc_list, word_matcher=self._word_matcher,
-                progress=lambda p: self._report_progress(p, progress),
-                monitor=monitor)
-        else:
-            for i, doc in enumerate(doc_list):
-                if monitor is not None and i % 100 == 0 and monitor.is_cancelled:
-                    raise InterruptedError("indexing cancelled")
-                stored = self._vector_model.index_document(doc)
-                if self._word_matcher is not None:
-                    self._word_matcher.load(stored.indexed_text, stored.id)
-                if total > 0:
-                    percent = int((i + 1) * 50.0 / total)
-                    self._report_progress(percent, progress)
+        phases: Dict[str, float] = {}
+        with tracing.span("build.index", request=tracing.request()):
+            if self._can_bulk_index(doc_list):
+                with tracing.timed("build.bulk_index", phases, "bulk_index"):
+                    self._vector_model.bulk_index_documents(
+                        doc_list, word_matcher=self._word_matcher,
+                        progress=lambda p: self._report_progress(p, progress),
+                        monitor=monitor)
+            else:
+                with tracing.timed("build.index_documents", phases,
+                                   "index_documents"):
+                    for i, doc in enumerate(doc_list):
+                        if (monitor is not None and i % 100 == 0
+                                and monitor.is_cancelled):
+                            raise InterruptedError("indexing cancelled")
+                        stored = self._vector_model.index_document(doc)
+                        if self._word_matcher is not None:
+                            self._word_matcher.load(stored.indexed_text,
+                                                    stored.id)
+                        if total > 0:
+                            percent = int((i + 1) * 50.0 / total)
+                            self._report_progress(percent, progress)
 
-        self._vector_model.build_inverted_lists()
-        if self._word_matcher is not None:
-            self._word_matcher.finalize_index()
-        self._is_indexed = True
-        self._vector_model.build_optimized_indexes()
-        self._rebuild_short_query_resolver()
-        self._pipeline.invalidate_caches(
-            appended_terms=self._appended_terms())
+            with tracing.timed("build.inverted_lists", phases,
+                               "inverted_lists"):
+                self._vector_model.build_inverted_lists()
+            if self._word_matcher is not None:
+                with tracing.timed("build.word_matcher", phases,
+                                   "word_matcher"):
+                    self._word_matcher.finalize_index()
+            self._is_indexed = True
+            with tracing.timed("build.optimized_indexes", phases,
+                               "optimized_indexes"):
+                self._vector_model.build_optimized_indexes()
+            with tracing.timed("build.short_query_resolver", phases,
+                               "short_query_resolver"):
+                self._rebuild_short_query_resolver()
+            with tracing.timed("build.invalidate_caches", phases,
+                               "invalidate_caches"):
+                self._pipeline.invalidate_caches(
+                    appended_terms=self._appended_terms())
+        self._build_seconds = phases
         self._column_store = None
         self._report_progress(100, progress)
 
@@ -381,6 +409,10 @@ class SearchEngine:
         return self._is_indexed or self._vector_model.built is not None
 
     def search(self, query: Query) -> Result:
+        with tracing.span("engine.search", request=tracing.request()):
+            return self._search(query)
+
+    def _search(self, query: Query) -> Result:
         import time as _time
 
         t_start = _time.perf_counter()
@@ -421,7 +453,8 @@ class SearchEngine:
                 status=status,
                 prefilter_mask=self._prefilter_mask(q.filter),
             )
-            results = self._apply_post_processing(results, q)
+            with tracing.span("engine.post_process"):
+                results = self._apply_post_processing(results, q)
 
             facets = None
             if q.enable_facets:
@@ -501,6 +534,10 @@ class SearchEngine:
         the high-throughput entry point: on links with high per-call latency
         it multiplies QPS by roughly the batch size.
         """
+        with tracing.span("engine.search_batch", request=tracing.request()):
+            return self._search_batch(queries)
+
+    def _search_batch(self, queries: List[Query]) -> List[Result]:
         import time as _time
 
         t_start = _time.perf_counter()
@@ -530,7 +567,8 @@ class SearchEngine:
         device readbacks (Stage-1 groups + coverage chunks) and
         ``device_calls`` the round-trip count. Under the pipelined
         scheduler, wall = host work + this blocked time, so the pair
-        tells which side binds a serving run (bench.py emits it)."""
+        tells which side binds a serving run (the benchmark's
+        ``device_wait_ms.*`` readers take it over a window)."""
         p = self._pipeline
         out = dict(device_wait_s=p.device_wait_s,
                    device_calls=p.device_calls)
@@ -554,12 +592,18 @@ class SearchEngine:
 
         Splits the queries into ``batch_size`` batches and overlaps batch
         i+1's host work (tokenize, WordMatcher lookups, candidate resolve)
-        with batch i's in-flight device programs via async JAX dispatch
-        (``SearchPipeline.execute_batches_pipelined``). Per-query semantics
-        are identical to ``search_batch``; this is the bulk/serving entry
-        point — on a high-latency device link the steady-state cost per
-        batch approaches max(host_ms, device_ms) instead of their sum.
+        with batch i's kernels in flight on the card: CUDA launches return
+        before the kernels finish (``SearchPipeline.
+        execute_batches_pipelined``). Per-query semantics are identical to
+        ``search_batch``; this is the bulk/serving entry point — the
+        steady-state cost per batch approaches max(host_ms, device_ms)
+        instead of their sum.
         """
+        with tracing.span("engine.search_many", request=tracing.request()):
+            return self._search_many(queries, batch_size, pipeline_depth)
+
+    def _search_many(self, queries: List[Query], batch_size: int,
+                     pipeline_depth: Optional[int]) -> List[Result]:
         import time as _time
 
         if pipeline_depth is None:
@@ -653,9 +697,10 @@ class SearchEngine:
         import time as _time
 
         out: List[Result] = []
-        processed: Dict[int, List[ScoreEntry]] = {
-            i: self._apply_post_processing(results_by_query[i], q)
-            for i, q in enumerate(prepped) if i not in direct}
+        with tracing.span("engine.post_process"):
+            processed: Dict[int, List[ScoreEntry]] = {
+                i: self._apply_post_processing(results_by_query[i], q)
+                for i, q in enumerate(prepped) if i not in direct}
         # Facets for the WHOLE batch in one pass per field: the counts
         # matrix is a single device segment-sum (ops/facets.py) or a host
         # bincount, never a per-result Python document walk.
@@ -750,7 +795,8 @@ class SearchEngine:
     def get_statistics(self) -> IndexStatistics:
         with self._rw_lock.read_lock():
             return IndexStatistics(self._vector_model.documents.count,
-                                   len(self._vector_model.term_dict))
+                                   len(self._vector_model.term_dict),
+                                   self._build_seconds)
 
     # ------------------------------------------------------------------
     # Persistence (index/persistence.py)

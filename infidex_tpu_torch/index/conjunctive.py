@@ -43,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from .candidates import score_pool
 
 #: ranked-pool cap (constant across coverage depths: oracle nesting).
@@ -232,10 +233,13 @@ def conjunctive_pool(model, word_groups: Sequence[Tuple[str, Sequence[np.ndarray
         model._conj_pool_memo = pcache
     hit = pcache[1].get(pool_key)
     if hit is not None:
+        tracing.count("conj_memo.hit")
         return hit
+    tracing.count("conj_memo.miss")
     pool = _conjunctive_pool_impl(model, built, word_groups, prep)
     pool = _as_pool(pool, _first_class_len(model, built, word_groups, pool))
     if len(pcache[1]) >= 4096:
+        tracing.count("conj_memo.clear")
         pcache[1].clear()
     pcache[1][pool_key] = pool
     return pool
@@ -253,6 +257,7 @@ def _conjunctive_pool_impl(model, built, word_groups, prep) -> np.ndarray:
         model._conj_token_evidence = cache
     memo = cache[1]
     infos = []
+    hits = 0
     for w, parts in word_groups:
         inf = memo.get(w)
         if inf is None:
@@ -261,9 +266,14 @@ def _conjunctive_pool_impl(model, built, word_groups, prep) -> np.ndarray:
             # (ensure_bits), so bound the memo's worst case at ~512MB.
             cap = max(512, min(8192, (1 << 31) // max(built.num_docs, 1)))
             if len(memo) >= cap:
+                tracing.count("evidence_memo.clear")
                 memo.clear()
             memo[w] = inf
+        else:
+            hits += 1
         infos.append(inf)
+    tracing.count("evidence_memo.hit", hits)
+    tracing.count("evidence_memo.miss", len(word_groups) - hits)
     evidenced = [inf for inf in infos if inf.gram_tids or inf.anchors]
     if len(evidenced) < 2:
         return np.zeros(0, np.int64)

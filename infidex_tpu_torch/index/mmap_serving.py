@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
 from .device import B, DELTA, K1, compute_idf
 
 
@@ -295,83 +296,85 @@ class MmapStage1:
 
     def _search_one(self, prep, top_k: int, total_docs: int,
                     stop_limit: int, host_mask=None):
-        model = self._model
-        built = model.built
-        term_ids, idfs, fuzzy_groups = prep
-        n = built.doc_lengths.size
-        avgdl = np.float32(max(built.avgdl, 1e-9))
-        dl = built.doc_lengths
-        dl = np.where(dl <= 0.0, np.float32(1.0), dl)
-        norm = np.float32(K1) * (np.float32(1.0 - B)
-                                 + np.float32(B) * (dl / avgdl))
-        scores = np.zeros(n, np.float32)
-        cnt = np.zeros(n, np.int32)   # distinct-scoring-term count
-        fz_any = np.zeros(n, bool)    # carries any fuzzy-matched word
+        with tracing.span("host_stage1.score"):
+            model = self._model
+            built = model.built
+            term_ids, idfs, fuzzy_groups = prep
+            n = built.doc_lengths.size
+            avgdl = np.float32(max(built.avgdl, 1e-9))
+            dl = built.doc_lengths
+            dl = np.where(dl <= 0.0, np.float32(1.0), dl)
+            norm = np.float32(K1) * (np.float32(1.0 - B)
+                                     + np.float32(B) * (dl / avgdl))
+            scores = np.zeros(n, np.float32)
+            cnt = np.zeros(n, np.int32)   # distinct-scoring-term count
+            fz_any = np.zeros(n, bool)    # carries any fuzzy-matched word
 
-        for tid, idf in zip(np.asarray(term_ids, np.int64), idfs):
-            if float(idf) <= 0.0:
-                continue
-            for docs, weights in self._term_parts(int(tid)):
-                d = docs.astype(np.int64)
-                tf = weights.astype(np.float32)
-                contrib = np.float32(idf) * (
-                    (tf * np.float32(K1 + 1.0)) / (tf + norm[d])
+            for tid, idf in zip(np.asarray(term_ids, np.int64), idfs):
+                if float(idf) <= 0.0:
+                    continue
+                for docs, weights in self._term_parts(int(tid)):
+                    d = docs.astype(np.int64)
+                    tf = weights.astype(np.float32)
+                    contrib = np.float32(idf) * (
+                        (tf * np.float32(K1 + 1.0)) / (tf + norm[d])
+                        + np.float32(DELTA))
+                    np.add.at(scores, d, contrib)
+                    np.add.at(cnt, d, 1)
+
+            for grp in (fuzzy_groups or ()):
+                # virtual term: union of matched terms' docs, tf = 1.0
+                # (VectorModel.ExpandMissingTerm; device twin: device.py
+                # fuzzy_presence + stage1_epilogue)
+                chunks = [docs for tid in np.asarray(grp, np.int64)
+                          for docs, _ in self._term_parts(int(tid))]
+                if not chunks:
+                    continue
+                union = np.unique(np.concatenate(chunks)).astype(np.int64)
+                df = int(union.size)
+                if df <= 0 or df > stop_limit:
+                    continue
+                fidf = compute_idf(total_docs, df)
+                contrib = np.float32(fidf) * (
+                    np.float32(K1 + 1.0) / (np.float32(1.0) + norm[union])
                     + np.float32(DELTA))
-                np.add.at(scores, d, contrib)
-                np.add.at(cnt, d, 1)
+                scores[union] += contrib
+                if fidf > 0.0:
+                    cnt[union] += 1
+                    fz_any[union] = True
 
-        for grp in (fuzzy_groups or ()):
-            # virtual term: union of matched terms' docs, tf = 1.0
-            # (VectorModel.ExpandMissingTerm; device twin: device.py
-            # fuzzy_presence + stage1_epilogue)
-            chunks = [docs for tid in np.asarray(grp, np.int64)
-                      for docs, _ in self._term_parts(int(tid))]
-            if not chunks:
-                continue
-            union = np.unique(np.concatenate(chunks)).astype(np.int64)
-            df = int(union.size)
-            if df <= 0 or df > stop_limit:
-                continue
-            fidf = compute_idf(total_docs, df)
-            contrib = np.float32(fidf) * (
-                np.float32(K1 + 1.0) / (np.float32(1.0) + norm[union])
-                + np.float32(DELTA))
-            scores[union] += contrib
-            if fidf > 0.0:
-                cnt[union] += 1
-                fz_any[union] = True
+            if model.deleted_arr.size >= n:
+                scores[model.deleted_arr[:n]] = 0.0
+                cnt[model.deleted_arr[:n]] = 0
+                fz_any[model.deleted_arr[:n]] = False
+            if host_mask is not None and host_mask.size >= n:
+                scores[~host_mask[:n]] = 0.0
+                cnt[~host_mask[:n]] = 0
+                fz_any[~host_mask[:n]] = False
 
-        if model.deleted_arr.size >= n:
-            scores[model.deleted_arr[:n]] = 0.0
-            cnt[model.deleted_arr[:n]] = 0
-            fz_any[model.deleted_arr[:n]] = False
-        if host_mask is not None and host_mask.size >= n:
-            scores[~host_mask[:n]] = 0.0
-            cnt[~host_mask[:n]] = 0
-            fz_any[~host_mask[:n]] = False
+        with tracing.span("host_stage1.select"):
+            k = min(int(top_k), n)
+            if k <= 0:
+                return (np.zeros(0, np.float32), np.zeros(0, np.int32),
+                        np.zeros(0, np.int32))
+            idx = np.argpartition(-scores, k - 1)[:k] if k < n \
+                else np.arange(n)
+            order = np.lexsort((idx, -scores[idx]))   # desc, lower id wins tie
+            out_scores = np.zeros(k, np.float32)
+            out_ids = np.zeros(k, np.int32)
+            out_scores[: order.size] = scores[idx[order]]
+            out_ids[: order.size] = idx[order]
+            # low-id matchers (device.py LIM rows, host twin): lowest ids of
+            # the max-gram-coverage class UNION the fuzzy-matched-word class
+            from .device import LIM_K, LIM_WINDOW
 
-        k = min(int(top_k), n)
-        if k <= 0:
-            return (np.zeros(0, np.float32), np.zeros(0, np.int32),
-                    np.zeros(0, np.int32))
-        idx = np.argpartition(-scores, k - 1)[:k] if k < n \
-            else np.arange(n)
-        order = np.lexsort((idx, -scores[idx]))   # desc, lower id wins tie
-        out_scores = np.zeros(k, np.float32)
-        out_ids = np.zeros(k, np.int32)
-        out_scores[: order.size] = scores[idx[order]]
-        out_ids[: order.size] = idx[order]
-        # low-id matchers (device.py LIM rows, host twin): lowest ids of
-        # the max-gram-coverage class UNION the fuzzy-matched-word class
-        from .device import LIM_K, LIM_WINDOW
-
-        w = min(LIM_WINDOW, n)
-        cmax = int(cnt[:w].max()) if w else 0
-        m = fz_any[:w]
-        if cmax > 0:
-            m = m | (cnt[:w] == cmax)
-        lim = np.flatnonzero(m)[: min(LIM_K, k)]
-        return out_scores, out_ids, lim.astype(np.int32)
+            w = min(LIM_WINDOW, n)
+            cmax = int(cnt[:w].max()) if w else 0
+            m = fz_any[:w]
+            if cmax > 0:
+                m = m | (cnt[:w] == cmax)
+            lim = np.flatnonzero(m)[: min(LIM_K, k)]
+            return out_scores, out_ids, lim.astype(np.int32)
 
 
 def build_union_index(model, n_docs: int):

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..core.config import DEFAULT_FIELD_WEIGHTS
 from ..core.documents import Document, DocumentCollection
 from ..tokenization.tokenizer import Tokenizer
@@ -1158,51 +1159,52 @@ class VectorModel:
         array per unknown token; union/df/idf resolve on device), or None
         when the query resolves to nothing scoreable.
         """
-        if self.built is None:
-            self.build_inverted_lists()
-        built = self.built
-        total_docs = self.documents.count
-        if total_docs == 0:
-            return None
+        with tracing.span("vector_model.prepare_stage1"):
+            if self.built is None:
+                self.build_inverted_lists()
+            built = self.built
+            total_docs = self.documents.count
+            if total_docs == 0:
+                return None
 
-        tokens = self.tokenizer.tokenize_for_search(query_text)
-        if not tokens:
-            return None
+            tokens = self.tokenizer.tokenize_for_search(query_text)
+            if not tokens:
+                return None
 
-        # Dedupe tokens into unique query terms (occurrences tracked but not
-        # used by BM25 scoring — matches Bm25Scorer which scores unique terms).
-        seen: Dict[str, int] = {}
-        unique_tokens: List[str] = []
-        for t in tokens:
-            if t not in seen:
-                seen[t] = 1
-                unique_tokens.append(t)
-            else:
-                seen[t] += 1
+            # Dedupe tokens into unique query terms (occurrences tracked but not
+            # used by BM25 scoring — matches Bm25Scorer which scores unique terms).
+            seen: Dict[str, int] = {}
+            unique_tokens: List[str] = []
+            for t in tokens:
+                if t not in seen:
+                    seen[t] = 1
+                    unique_tokens.append(t)
+                else:
+                    seen[t] += 1
 
-        term_ids: List[int] = []
-        idfs: List[float] = []
-        fuzzy_groups: List[np.ndarray] = []
+            term_ids: List[int] = []
+            idfs: List[float] = []
+            fuzzy_groups: List[np.ndarray] = []
 
-        for tok in unique_tokens:
-            tid = built.term_to_id.get(tok, -1)
-            df = built.df[tid] if tid >= 0 else 0
-            if df <= 0 and len(tok) >= 4:
-                matched = self.expand_missing_term_ids(tok)
-                if matched.size:
-                    fuzzy_groups.append(matched)
-                continue
-            if df <= 0 or df > self.stop_term_limit:
-                continue
-            term_ids.append(tid)
-            idfs.append(compute_idf(total_docs, int(df)))
+            for tok in unique_tokens:
+                tid = built.term_to_id.get(tok, -1)
+                df = built.df[tid] if tid >= 0 else 0
+                if df <= 0 and len(tok) >= 4:
+                    matched = self.expand_missing_term_ids(tok)
+                    if matched.size:
+                        fuzzy_groups.append(matched)
+                    continue
+                if df <= 0 or df > self.stop_term_limit:
+                    continue
+                term_ids.append(tid)
+                idfs.append(compute_idf(total_docs, int(df)))
 
-        if not term_ids and not fuzzy_groups:
-            return None
+            if not term_ids and not fuzzy_groups:
+                return None
 
-        return (np.asarray(term_ids, dtype=np.int64),
-                np.asarray(idfs, dtype=np.float32),
-                fuzzy_groups)
+            return (np.asarray(term_ids, dtype=np.int64),
+                    np.asarray(idfs, dtype=np.float32),
+                    fuzzy_groups)
 
     def finish_stage1_arrays(self, scores: np.ndarray,
                              ids: np.ndarray) -> Stage1Arrays:
@@ -1339,7 +1341,8 @@ class VectorModel:
         tiered = self._tiered_for()
         if tiered is None or not tiered.applicable(term_ids, fuzzy_groups):
             return None
-        return tiered.run(term_ids, idfs, top_k, mask=mask)
+        with tracing.span("vector_model.stage1_tiered"):
+            return tiered.run(term_ids, idfs, top_k, mask=mask)
 
     #: lane/batch ceilings for routing Stage-1 to the exact host scorer
     #: (single-query serving: a host pass over <=64k postings costs ~1ms
@@ -1424,19 +1427,27 @@ class VectorModel:
         if prep is None:
             return []
         out = self.stage1_tiered_maybe(prep, top_k, mask=prefilter_mask)
-        if out is None and self.host_stage1_ok([prep], 1):
-            out = self.host_stage1.search_batch(
-                [prep], top_k, total_docs=self.documents.count,
-                stop_term_limit=self.stop_term_limit,
-                host_mask=prefilter_mask)[0]
-        if out is None:
-            if self.device is None:
-                self.build_inverted_lists()
-            out = self.stage1_backend.search_batch(
-                [prep], top_k, total_docs=self.documents.count,
-                stop_term_limit=self.stop_term_limit,
-                live_override=self.stage1_live_override(prefilter_mask))[0]
+        if out is not None:
+            tracing.count("stage1.route.tiered")
+        elif self.host_stage1_ok([prep], 1):
+            tracing.count("stage1.route.host")
+            with tracing.span("vector_model.stage1_host"):
+                out = self.host_stage1.search_batch(
+                    [prep], top_k, total_docs=self.documents.count,
+                    stop_term_limit=self.stop_term_limit,
+                    host_mask=prefilter_mask)[0]
+        else:
+            tracing.count("stage1.route.device")
+            with tracing.span("vector_model.stage1_device"):
+                if self.device is None:
+                    self.build_inverted_lists()
+                out = self.stage1_backend.search_batch(
+                    [prep], top_k, total_docs=self.documents.count,
+                    stop_term_limit=self.stop_term_limit,
+                    live_override=self.stage1_live_override(
+                        prefilter_mask))[0]
         scores, ids = out[0], out[1]
         if lim_out is not None and len(out) > 2:
             lim_out.append(out[2])
-        return self.finish_stage1(scores, ids, best_segments_map)
+        with tracing.span("vector_model.finish_stage1"):
+            return self.finish_stage1(scores, ids, best_segments_map)

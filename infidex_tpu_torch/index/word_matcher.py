@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..core.config import WordMatcherSetup
 from ..tokenization.normalizer import TextNormalizer
 
@@ -343,18 +344,19 @@ class WordMatcher:
         grouping is what the conjunctive candidate tier consumes
         (``index/conjunctive.py``: its per-token strong-evidence
         anchors are exactly these lists)."""
-        groups: List[Tuple[str, List[np.ndarray]]] = []
-        for word in self._split(query_text):
-            if len(word) < 2 or word.isspace():
-                continue
-            g: List[np.ndarray] = []
-            ids = self.lookup(word)
-            if ids is not None and len(ids):
-                g.append(np.asarray(ids))
-            if cover_prefix_suffix:
-                g.extend(self._affix_parts(word))
-            groups.append((word, g))
-        return groups
+        with tracing.span("word_matcher.lookup"):
+            groups: List[Tuple[str, List[np.ndarray]]] = []
+            for word in self._split(query_text):
+                if len(word) < 2 or word.isspace():
+                    continue
+                g: List[np.ndarray] = []
+                ids = self.lookup(word)
+                if ids is not None and len(ids):
+                    g.append(np.asarray(ids))
+                if cover_prefix_suffix:
+                    g.extend(self._affix_parts(word))
+                groups.append((word, g))
+            return groups
 
     # ------------------------------------------------------------------
     # Persistence (engine-level save/load serializes these tables)
