@@ -127,6 +127,13 @@ class DocumentFields:
         each field (or array element) starts in the concatenated text
         (DocumentFields.cs:124-170).
         """
+        if len(self._fields) == 1:
+            # one plain field (a title): the loop below gives this
+            (f,) = self._fields.values()
+            if f.indexable and not (f.is_array
+                                    and isinstance(f.value, (list, tuple))):
+                return ([(0, int(f.weight))],
+                        "" if f.value is None else str(f.value))
         boundaries: List[Tuple[int, int]] = []
         parts: List[str] = []
         pos = 0

@@ -157,7 +157,6 @@ class SearchEngine:
     def _index_documents_internal(self, doc_list: List[Document],
                                   progress: Optional[Callable[[int], None]],
                                   monitor=None) -> None:
-        total = len(doc_list)
         self._is_indexed = False
         if doc_list and self._document_field_schema is None \
                 and doc_list[0].fields is not None:
@@ -165,48 +164,57 @@ class SearchEngine:
 
         phases: Dict[str, float] = {}
         with tracing.span("build.index", request=tracing.request()):
-            if self._can_bulk_index(doc_list):
-                with tracing.timed("build.bulk_index", phases, "bulk_index"):
-                    self._vector_model.bulk_index_documents(
-                        doc_list, word_matcher=self._word_matcher,
-                        progress=lambda p: self._report_progress(p, progress),
-                        monitor=monitor)
-            else:
-                with tracing.timed("build.index_documents", phases,
-                                   "index_documents"):
-                    for i, doc in enumerate(doc_list):
-                        if (monitor is not None and i % 100 == 0
-                                and monitor.is_cancelled):
-                            raise InterruptedError("indexing cancelled")
-                        stored = self._vector_model.index_document(doc)
-                        if self._word_matcher is not None:
-                            self._word_matcher.load(stored.indexed_text,
-                                                    stored.id)
-                        if total > 0:
-                            percent = int((i + 1) * 50.0 / total)
-                            self._report_progress(percent, progress)
-
-            with tracing.timed("build.inverted_lists", phases,
-                               "inverted_lists"):
-                self._vector_model.build_inverted_lists()
-            if self._word_matcher is not None:
-                with tracing.timed("build.word_matcher", phases,
-                                   "word_matcher"):
-                    self._word_matcher.finalize_index()
-            self._is_indexed = True
-            with tracing.timed("build.optimized_indexes", phases,
-                               "optimized_indexes"):
-                self._vector_model.build_optimized_indexes()
-            with tracing.timed("build.short_query_resolver", phases,
-                               "short_query_resolver"):
-                self._rebuild_short_query_resolver()
-            with tracing.timed("build.invalidate_caches", phases,
-                               "invalidate_caches"):
-                self._pipeline.invalidate_caches(
-                    appended_terms=self._appended_terms())
+            try:
+                self._build_phases(doc_list, progress, monitor, phases)
+            finally:
+                self._vector_model._bulk_image = None
         self._build_seconds = phases
         self._column_store = None
         self._report_progress(100, progress)
+
+    def _build_phases(self, doc_list: List[Document],
+                      progress: Optional[Callable[[int], None]], monitor,
+                      phases: Dict[str, float]) -> None:
+        total = len(doc_list)
+        if self._can_bulk_index(doc_list):
+            with tracing.timed("build.bulk_index", phases, "bulk_index"):
+                self._vector_model.bulk_index_documents(
+                    doc_list, word_matcher=self._word_matcher,
+                    progress=lambda p: self._report_progress(p, progress),
+                    monitor=monitor)
+        else:
+            with tracing.timed("build.index_documents", phases,
+                               "index_documents"):
+                for i, doc in enumerate(doc_list):
+                    if (monitor is not None and i % 100 == 0
+                            and monitor.is_cancelled):
+                        raise InterruptedError("indexing cancelled")
+                    stored = self._vector_model.index_document(doc)
+                    if self._word_matcher is not None:
+                        self._word_matcher.load(stored.indexed_text,
+                                                stored.id)
+                    if total > 0:
+                        percent = int((i + 1) * 50.0 / total)
+                        self._report_progress(percent, progress)
+
+        with tracing.timed("build.inverted_lists", phases,
+                           "inverted_lists"):
+            self._vector_model.build_inverted_lists()
+        if self._word_matcher is not None:
+            with tracing.timed("build.word_matcher", phases,
+                               "word_matcher"):
+                self._word_matcher.finalize_index()
+        self._is_indexed = True
+        with tracing.timed("build.optimized_indexes", phases,
+                           "optimized_indexes"):
+            self._vector_model.build_optimized_indexes()
+        with tracing.timed("build.short_query_resolver", phases,
+                           "short_query_resolver"):
+            self._rebuild_short_query_resolver()
+        with tracing.timed("build.invalidate_caches", phases,
+                           "invalidate_caches"):
+            self._pipeline.invalidate_caches(
+                appended_terms=self._appended_terms())
 
     def _can_bulk_index(self, doc_list: List[Document]) -> bool:
         """Native bulk build applies to fresh indexes only (the C++
@@ -273,10 +281,9 @@ class SearchEngine:
             # pass + all-prefix rebuild (5.4s at 1M docs).
             res.append_docs(m.short_query_index.last_appended, *ap)
             return
-        delims = (m.tokenizer.tokenizer_setup.delimiters
-                  if m.tokenizer.tokenizer_setup else (" ",))
         m.short_query_resolver = ShortQueryResolver(
-            m.short_query_index, m.documents, delims)
+            m.short_query_index, m.documents, m._delimiters(),
+            m._bulk_product("sq_tables"))
         # Eager champion builds at finalize (ShortQueryResolver.cs:
         # 113-204 builds all prefix lists in parallel at freeze) so the
         # first short query per prefix pays no scan spike. Vectorized;

@@ -201,7 +201,8 @@ class _DocScore:
 
 class ShortQueryResolver:
     def __init__(self, prefix_index: PositionalPrefixIndex,
-                 documents: DocumentCollection, delimiters=(" ",)):
+                 documents: DocumentCollection, delimiters=(" ",),
+                 tables: Optional[dict] = None):
         self._prefix_index = prefix_index
         self._documents = documents
         self._delims = set(delimiters)
@@ -214,8 +215,8 @@ class ShortQueryResolver:
         # Persistent doc tables (built once, extended on append-only
         # finalizes): champion builds AND the vectorized short-query
         # processor (scoring/short_query.search_short_query_fast) read
-        # them.
-        self._tables: Optional[dict] = None
+        # them. ``tables``: the same tables from the bulk index pass.
+        self._tables: Optional[dict] = tables
 
     def _split(self, text: str) -> List[str]:
         out, cur = [], []

@@ -167,6 +167,9 @@ class VectorModel:
 
         # Bulk-build CSR image awaiting materialization (native/bulk.py)
         self._bulk_csr = None
+        # The bulk pass's per-document products, read by the phases of
+        # the same build (_bulk_product); dropped when the build ends.
+        self._bulk_image: Optional[dict] = None
 
         # Append-only fast finalize (index/append.py): postings of docs
         # added onto a finalized base accumulate here until the next
@@ -198,32 +201,66 @@ class VectorModel:
         if self.tokenizer.text_normalizer is not None:
             text = self.tokenizer.text_normalizer.normalize(text)
         text = text.lower()
-        if self.synonym_map is not None and self.synonym_map.has_canonical_mappings:
-            delims = (
-                self.tokenizer.tokenizer_setup.delimiters
-                if self.tokenizer.tokenizer_setup
-                else (" ",)
-            )
-            text = self.synonym_map.canonicalize_text(text, delims)
+        if self._canonical():
+            text = self.synonym_map.canonicalize_text(text,
+                                                      self._delimiters())
         return text
+
+    def _canonical(self) -> bool:
+        return (self.synonym_map is not None
+                and self.synonym_map.has_canonical_mappings)
+
+    def _delimiters(self) -> Tuple[str, ...]:
+        setup = self.tokenizer.tokenizer_setup
+        return setup.delimiters if setup else (" ",)
+
+    def _coverage_text(self, raw: str) -> str:
+        """A document's text as the coverage tables, ``norm_texts``, the
+        metadata cache and the first-token index read it: normalized,
+        canonicalized, lowercased."""
+        if not raw:
+            return ""
+        norm = self.tokenizer.text_normalizer
+        text = norm.normalize(raw) if norm is not None else raw
+        if self._canonical():
+            text = self.synonym_map.canonicalize_text(text,
+                                                      self._delimiters())
+        return text.lower()
+
+    def _df_text(self, raw: str) -> str:
+        """A document's text as its word document frequencies count it
+        (surface words, never canonicalized: VectorModel.cs:864-908)."""
+        norm = self.tokenizer.text_normalizer
+        text = raw.lower()
+        if norm is not None:
+            text = norm.normalize(text)
+        return text.lower()
 
     # ------------------------------------------------------------------
     # Native bulk build (native/bulk.py): one C++ pass for tokenize ->
-    # term dict -> postings accumulation (+ WordMatcher / prefix index).
+    # term dict -> postings accumulation (+ WordMatcher / prefix index),
+    # which also emits the per-document products the later phases read.
 
     def bulk_index_documents(self, doc_list: List[Document],
                              word_matcher=None, progress=None,
                              monitor=None, chunk: int = 4096) -> None:
         """Fast fresh-index build; semantics identical to per-doc
         index_document + WordMatcher.load + prefix indexing (pinned by
-        tests/test_bulk_build_parity.py). Only valid on an empty index."""
-        from ..native.bulk import BulkIndexer
+        tests/test_bulk_build_parity.py). Only valid on an empty index.
+
+        The pass also keeps the products of every document for the
+        phases that follow (``_bulk_product``): what each would derive
+        from the document texts is the same, bit for bit
+        (tests/test_torch_bulk_products.py)."""
+        from ..native.bulk import FOLD_LIMIT, BulkIndexer, fold_tables
+        from ..ops.coverage_kernel import D_MAX, L_MAX
 
         assert len(self.term_dict) == 0 and not self._segments
         setup = self.tokenizer.tokenizer_setup
-        delims = setup.delimiters if setup else (" ",)
+        delims = self._delimiters()
         remove_dups = setup.remove_duplicate_tokens if setup else True
         sq = self.short_query_index
+        norm = self.tokenizer.text_normalizer
         indexer = BulkIndexer(
             self.tokenizer.index_sizes, self.tokenizer.start_pad_size,
             self.tokenizer.stop_pad_size, delims, remove_dups,
@@ -231,33 +268,55 @@ class VectorModel:
             wm_setup=word_matcher._setup if word_matcher is not None else None,
             sq_minmax=((sq.min_prefix_length, sq.max_prefix_length)
                        if sq is not None else None))
+        # The pass derives a document's texts itself only where each is a
+        # map per code point of the one normalizer (fold_tables); the
+        # synonym canonicalization and a WordMatcher of another
+        # normalizer leave every document to the Python recipes.
+        native = not self._canonical() and (
+            word_matcher is None or word_matcher._normalizer is norm)
+        indexer.enable_products(
+            fold_tables(norm, FOLD_LIMIT if native else 0), D_MAX, L_MAX,
+            len(doc_list))
+
+        def recipe(raw: str, deleted: bool):
+            index_text = self.normalize_doc_text(raw)
+            return (norm.normalize(index_text) if norm is not None
+                    else index_text,
+                    index_text if sq is not None else "",
+                    word_matcher._normalize(raw)
+                    if word_matcher is not None else "",
+                    self._coverage_text(raw),
+                    "" if deleted or not raw else self._df_text(raw),
+                    raw.lower())
+
+        first_doc = len(self.documents)
+        add_document = self.documents.add_document
+        deleted, keys = [], []
         try:
-            norm = self.tokenizer.text_normalizer
             total = len(doc_list)
             done = 0
             for lo in range(0, total, chunk):
                 batch = doc_list[lo : lo + chunk]
-                mains, sqs, wms, ids, conts, bounds = [], [], [], [], [], []
+                first_id = len(self.documents)
+                raws, bounds = [], []
                 for document in batch:
                     if monitor is not None and monitor.is_cancelled:
                         raise InterruptedError("indexing cancelled")
-                    doc = self.documents.add_document(document)
+                    add_document(document)  # ids follow on from first_id
                     boundaries, concatenated = \
                         document.fields.get_searchable_texts("§")
-                    doc.indexed_text = concatenated
-                    index_text = self.normalize_doc_text(concatenated)
-                    # tokenize_for_indexing re-normalizes its input; the
-                    # C++ tokenizer receives the same doubly-normalized
-                    # text so positions and grams match exactly.
-                    mains.append(norm.normalize(index_text)
-                                 if norm is not None else index_text)
-                    sqs.append(index_text if sq is not None else "")
-                    wms.append(word_matcher._normalize(concatenated)
-                               if word_matcher is not None else "")
-                    ids.append(doc.id)
-                    conts.append(doc.segment_number > 0)
+                    document.indexed_text = concatenated
+                    raws.append(concatenated)
                     bounds.append(boundaries)
-                indexer.add_chunk(mains, sqs, wms, ids, conts, bounds)
+                dead = [d.deleted for d in batch]
+                deleted += dead
+                keys += [d.document_key for d in batch]
+                n_fallback = indexer.add_raw(
+                    raws, range(first_id, first_id + len(batch)),
+                    [d.segment_number > 0 for d in batch], bounds, dead,
+                    recipe)
+                tracing.count("build.native_docs", len(batch) - n_fallback)
+                tracing.count("build.fallback_docs", n_fallback)
                 done += len(batch)
                 if progress is not None and total > 0:
                     progress(int(done * 50.0 / total))
@@ -276,9 +335,40 @@ class VectorModel:
                                        indexer.export_wm(2))
             if sq is not None:
                 sq.load_bulk(indexer.export_sq())
+            products = indexer.export_products()
         finally:
             indexer.close()
         self.built = None
+        if first_doc != 0:
+            return  # earlier documents are not in the products
+        products["deleted"] = np.asarray(deleted, bool)
+        products["doc_keys"] = np.asarray(keys, np.int64)
+        # ShortQueryResolver._build_doc_tables' dict
+        products["sq_tables"] = dict(
+            deleted=products["deleted"].copy(),
+            doc_keys=products["doc_keys"].copy(),
+            **{k: products.pop(k) for k in (
+                "short_title", "text_prefix", "any_map", "first_map",
+                "title_map")})
+        if setup is None:
+            del products["word_df"]  # split_words finds no word then
+        products["epoch"] = self._bulk_epoch()
+        self._bulk_image = products
+
+    def _bulk_epoch(self):
+        return (self.documents.mutation_epoch, len(self.documents),
+                self.synonym_map.mutation_epoch
+                if self.synonym_map is not None else -1)
+
+    def _bulk_product(self, name: str):
+        """Product ``name`` of the last bulk pass (``bulk_index_documents``)
+        while it describes every document as it is: none added, deleted
+        or compacted and the synonym map unchanged since; else None, and
+        the caller derives it from the documents."""
+        image = self._bulk_image
+        if image is None or image["epoch"] != self._bulk_epoch():
+            return None
+        return image.get(name)
 
     def _materialize_bulk(self) -> None:
         """Convert the bulk CSR image into mutable TermPostings lists so
@@ -474,17 +564,23 @@ class VectorModel:
                 np.int64, k)])
         else:
             epoch_clean = False
-            deleted = np.array(
-                [self.documents.get_document(i).deleted for i in range(n)],
-                dtype=bool) if n else np.zeros(0, bool)
             # Dense per-internal-id arrays for vectorized candidate
             # handling (Python loops over WordMatcher hit lists scale
             # with df otherwise).
+            deleted = self._bulk_product("deleted")
+            if deleted is not None:
+                deleted = deleted.copy()
+                self.doc_keys_arr = self._bulk_product("doc_keys").copy()
+            else:
+                deleted = np.array(
+                    [self.documents.get_document(i).deleted
+                     for i in range(n)],
+                    dtype=bool) if n else np.zeros(0, bool)
+                self.doc_keys_arr = np.array(
+                    [self.documents.get_document(i).document_key
+                     for i in range(n)],
+                    dtype=np.int64) if n else np.zeros(0, np.int64)
             self.deleted_arr = deleted
-            self.doc_keys_arr = np.array(
-                [self.documents.get_document(i).document_key
-                 for i in range(n)],
-                dtype=np.int64) if n else np.zeros(0, np.int64)
         self._doc_epoch_at_finalize = self.documents.mutation_epoch
         self.device = DeviceIndex(self.built, deleted)
         self._build_word_idf_cache(
@@ -708,21 +804,12 @@ class VectorModel:
             return False
         if k == 0:
             return True
-        delims = (self.tokenizer.tokenizer_setup.delimiters
-                  if self.tokenizer.tokenizer_setup else (" ",))
+        delims = self._delimiters()
         texts_new = []
         for i in range(start, start + k):
             doc = self.documents.get_document(i)
-            if doc is None or not doc.indexed_text:
-                texts_new.append("")
-                continue
-            text = doc.indexed_text
-            if self.tokenizer.text_normalizer is not None:
-                text = self.tokenizer.text_normalizer.normalize(text)
-            if (self.synonym_map is not None
-                    and self.synonym_map.has_canonical_mappings):
-                text = self.synonym_map.canonicalize_text(text, delims)
-            texts_new.append(text.lower())
+            texts_new.append(self._coverage_text(doc.indexed_text)
+                             if doc is not None else "")
         if not ct.append_texts(texts_new, delims, start):
             return False
         grown = np.empty(start + k, dtype=object)
@@ -776,10 +863,10 @@ class VectorModel:
             return
         from .first_token import FirstTokenIndex
 
-        delims = (self.tokenizer.tokenizer_setup.delimiters
-                  if self.tokenizer.tokenizer_setup else (" ",))
-        self.first_token_index = FirstTokenIndex.build(self.norm_texts,
-                                                       delims)
+        first_words = self._bulk_product("first_words")
+        self.first_token_index = (
+            FirstTokenIndex(first_words) if first_words is not None
+            else FirstTokenIndex.build(self.norm_texts, self._delimiters()))
 
     def enable_sharding(self, mesh) -> None:
         """Serve Stage-1 + coverage sharded over *mesh* from now on.
@@ -819,30 +906,40 @@ class VectorModel:
         """Encode per-doc coverage token tables for the device kernel."""
         from ..ops.coverage_kernel import CoverageTables
 
-        delims = (
-            self.tokenizer.tokenizer_setup.delimiters
-            if self.tokenizer.tokenizer_setup else (" ",)
-        )
-        texts = []
-        for i in range(len(self.documents)):
-            doc = self.documents.get_document(i)
-            if doc is None or not doc.indexed_text:
-                texts.append("")
-                continue
-            text = doc.indexed_text
-            if self.tokenizer.text_normalizer is not None:
-                text = self.tokenizer.text_normalizer.normalize(text)
-            if (self.synonym_map is not None
-                    and self.synonym_map.has_canonical_mappings):
-                text = self.synonym_map.canonicalize_text(text, delims)
-            texts.append(text.lower())
-        self.coverage_tables = CoverageTables.build(texts, delims)
+        texts = self._bulk_product("norm_texts")
+        if texts is not None:
+            self.coverage_tables = CoverageTables.from_arrays(
+                self._bulk_product("coverage"), texts,
+                text_blob=self._bulk_product("norm"))
+        else:
+            texts = []
+            for i in range(len(self.documents)):
+                doc = self.documents.get_document(i)
+                texts.append(self._coverage_text(doc.indexed_text)
+                             if doc is not None else "")
+            self.coverage_tables = CoverageTables.build(texts,
+                                                        self._delimiters())
         # Normalized lowercase texts by internal id, for vectorized
         # candidate-text fetch (LCS inputs) without per-doc Python.
         self.norm_texts = np.empty(len(texts), dtype=object)
         self.norm_texts[:] = texts
 
     def _build_document_metadata_cache(self) -> None:
+        first_id = self._bulk_product("first_id")
+        if first_id is not None:
+            # one object per distinct (first word, word count), shared by
+            # the documents that have it (nothing writes to the cache);
+            # a deleted document's is the empty one
+            words = list(self._bulk_product("first_words"))
+            key = np.where(~self._bulk_product("deleted"),
+                           (first_id.astype(np.int64) + 1) << 32
+                           | self._bulk_product("n_words"), 0)
+            distinct, which = np.unique(key, return_inverse=True)
+            rows = [DocumentMetadata(words[(k >> 32) - 1] if k >> 32 else "",
+                                     k & 0xFFFFFFFF)
+                    for k in distinct.tolist()]
+            self.doc_metadata = [rows[i] for i in which.tolist()]
+            return
         delims = (
             set(self.tokenizer.tokenizer_setup.delimiters)
             if self.tokenizer.tokenizer_setup
@@ -895,7 +992,9 @@ class VectorModel:
         self._word_df = None
         if total == 0:
             return
-        word_df = self._native_word_df()
+        word_df = self._bulk_product("word_df")
+        if word_df is None:
+            word_df = self._native_word_df()
         if word_df is None:
             word_df = {}
             for i in range(len(self.documents)):
@@ -963,14 +1062,12 @@ class VectorModel:
             from ..native.bulk import word_document_frequencies
         except Exception:
             return None
-        norm = self.tokenizer.text_normalizer
         # Word df runs on NON-canonicalized text (VectorModel.cs:864-908
         # counts surface words); norm_texts is shareable only when no
         # canonical synonym rewriting is active.
         nt = self.norm_texts
         use_nt = (nt is not None and nt.size >= len(self.documents)
-                  and not (self.synonym_map is not None
-                           and self.synonym_map.has_canonical_mappings))
+                  and not self._canonical())
         texts, skip = [], []
         for i in range(len(self.documents)):
             doc = self.documents.get_document(i)
@@ -978,13 +1075,7 @@ class VectorModel:
                 texts.append("")
                 skip.append(1)
                 continue
-            if use_nt:
-                texts.append(nt[i])
-            else:
-                text = doc.indexed_text.lower()
-                if norm is not None:
-                    text = norm.normalize(text)
-                texts.append(text.lower())
+            texts.append(nt[i] if use_nt else self._df_text(doc.indexed_text))
             skip.append(0)
         return word_document_frequencies(
             texts, self.tokenizer.tokenizer_setup.delimiters, skip)

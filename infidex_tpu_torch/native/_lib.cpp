@@ -220,23 +220,38 @@ int64_t infidex_gvi_decode_delta(const uint8_t* in, int64_t n,
 }  // extern "C"
 
 // ===================================================================
-// Bulk index builder: tokenize -> term dict -> postings accumulation,
+// Bulk index builder: one pass over the corpus. For each document it
+// tokenizes into the term dictionary and CSR postings, fills the
 // WordMatcher maps (exact / LD1 deletions / affix) and the positional
-// prefix index, all in one pass over UTF-32 document blobs.
+// prefix index, and, with the products on (infidex_bulk_products),
+// every per-document table a later build phase reads: the normalized
+// text, the coverage token tables, the first word and word count, the
+// word document frequencies and the short-query doc tables.
+//
+// A document reaches the pass as its raw text. Where every code point of
+// it is in the fold table (Python builds it from the engine's normalizer
+// and str.lower, native/bulk.py fold_tables), the pass derives each
+// phase's text itself; otherwise the caller hands over the six texts
+// the Python recipes give (infidex_bulk_classify says which documents).
 //
 // Semantics replicate the Python host path exactly:
 //   index/builder.py  TermPostings.increment_usage / first_cycle_add
 //   tokenization/tokenizer.py  tokenize_for_indexing (+_effective_sizes,
 //     _all_padding, split_words)
-//   index/vector_model.py  _field_weight_at
+//   index/vector_model.py  _field_weight_at, _native_word_df,
+//     _build_document_metadata_cache
+//   index/first_token.py  FirstTokenIndex.build
 //   index/word_matcher.py  load/_add/_deletions
-//   index/short_query.py  PositionalPrefixIndex.index_document
+//   index/short_query.py  PositionalPrefixIndex.index_document,
+//     ShortQueryResolver._build_doc_tables
+//   ops/coverage_kernel.py  _encode_doc_arrays
 // ===================================================================
 
 #include <cstdint>
 #include <cstring>
 #include <chrono>
 #include <cmath>
+#include <memory>
 #include <mutex>
 #include <vector>
 #include <string>
@@ -248,31 +263,73 @@ namespace bulk {
 static const uint32_t PAD_START = 0xFFFF;
 static const uint32_t PAD_STOP = 0xFFFE;
 
+struct Delims {
+    static const uint32_t kSmall = 0x3000;
+    std::vector<uint32_t> sorted;
+    std::vector<uint8_t> small;  // membership of the code points below kSmall
+
+    void assign(const uint32_t* d, int32_t n) {
+        sorted.assign(d, d + n);
+        std::sort(sorted.begin(), sorted.end());
+        small.assign(kSmall, 0);
+        for (uint32_t c : sorted)
+            if (c < kSmall) small[c] = 1;
+    }
+    bool has(uint32_t c) const {
+        if (c < kSmall) return small[c] != 0;
+        return std::binary_search(sorted.begin(), sorted.end(), c);
+    }
+};
+
+// The words of t, maximal runs of non-delimiters, in order: f(start, len)
+// (Tokenizer.split_words and the same scan in every other phase).
+template <class F>
+static void for_each_word(const uint32_t* t, int64_t n, const Delims& d,
+                          F f) {
+    int64_t i = 0;
+    while (i < n) {
+        while (i < n && d.has(t[i])) i++;
+        int64_t start = i;
+        while (i < n && !d.has(t[i])) i++;
+        if (i > start) f(start, i - start);
+    }
+}
+
+static bool py_isspace(uint32_t c) {
+    // str.isspace(), every code point
+    if (c >= 0x09 && c <= 0x0D) return true;
+    if (c >= 0x1C && c <= 0x1F) return true;
+    if (c == 0x20 || c == 0x85 || c == 0xA0 || c == 0x1680) return true;
+    if (c >= 0x2000 && c <= 0x200A) return true;
+    if (c == 0x2028 || c == 0x2029 || c == 0x202F || c == 0x205F ||
+        c == 0x3000)
+        return true;
+    return false;
+}
+
 struct U32Span { const uint32_t* p; int32_t n; };
 
-struct SpanHash {
-    size_t operator()(const U32Span& s) const {
-        // FNV-1a over code points
-        uint64_t h = 1469598103934665603ull;
-        for (int32_t i = 0; i < s.n; i++) {
-            h ^= (uint64_t)s.p[i];
-            h *= 1099511628211ull;
-        }
-        return (size_t)h;
-    }
-};
-struct SpanEq {
-    bool operator()(const U32Span& a, const U32Span& b) const {
-        return a.n == b.n && std::memcmp(a.p, b.p, (size_t)a.n * 4) == 0;
-    }
-};
-
 struct StrMap {
-    // insertion-ordered string->id map over an arena (stable storage)
+    // insertion-ordered string->id map: keys in an arena (stable
+    // storage), an open-addressing table of (hash tag, id + 1) slots
     std::vector<std::vector<uint32_t>> arena_blocks;
     size_t arena_used = 0;
-    std::unordered_map<U32Span, int32_t, SpanHash, SpanEq> map;
-    std::vector<U32Span> keys;  // by id
+    std::vector<U32Span> keys;     // by id
+    std::vector<uint64_t> hashes;  // by id
+    std::vector<uint64_t> slots;   // 0 = empty
+    size_t mask = 0;
+
+    static uint64_t hash(const uint32_t* p, int32_t n) {
+        // FNV-1a over code points, then a finalizer for the low bits
+        uint64_t h = 1469598103934665603ull;
+        for (int32_t i = 0; i < n; i++) {
+            h ^= (uint64_t)p[i];
+            h *= 1099511628211ull;
+        }
+        h ^= h >> 31;
+        h *= 0xbf58476d1ce4e5b9ull;
+        return h ^ (h >> 29);
+    }
 
     const uint32_t* intern(const uint32_t* p, int32_t n) {
         if (arena_blocks.empty() ||
@@ -288,14 +345,34 @@ struct StrMap {
         return dst;
     }
 
+    void grow() {
+        slots.assign(slots.empty() ? 1024 : slots.size() * 2, 0);
+        mask = slots.size() - 1;
+        for (size_t id = 0; id < keys.size(); id++) {
+            size_t i = (size_t)hashes[id] & mask;
+            while (slots[i] != 0) i = (i + 1) & mask;
+            slots[i] = (hashes[id] >> 32 << 32) | (uint64_t)(id + 1);
+        }
+    }
+
     int32_t get_or_add(const uint32_t* p, int32_t n, bool* added) {
-        U32Span probe{p, n};
-        auto it = map.find(probe);
-        if (it != map.end()) { if (added) *added = false; return it->second; }
-        U32Span owned{intern(p, n), n};
-        int32_t id = (int32_t)keys.size();
-        keys.push_back(owned);
-        map.emplace(owned, id);
+        if ((keys.size() + 1) * 2 > slots.size()) grow();
+        const uint64_t h = hash(p, n);
+        const uint64_t tag = h >> 32;
+        size_t i = (size_t)h & mask;
+        for (; slots[i] != 0; i = (i + 1) & mask) {
+            if ((slots[i] >> 32) != tag) continue;
+            const int32_t id = (int32_t)(uint32_t)slots[i] - 1;
+            const U32Span& k = keys[(size_t)id];
+            if (k.n == n && std::memcmp(k.p, p, (size_t)n * 4) == 0) {
+                if (added) *added = false;
+                return id;
+            }
+        }
+        const int32_t id = (int32_t)keys.size();
+        keys.push_back(U32Span{intern(p, n), n});
+        hashes.push_back(h);
+        slots[i] = (tag << 32) | (uint64_t)(id + 1);
         if (added) *added = true;
         return id;
     }
@@ -310,20 +387,103 @@ struct Postings {
 struct DocListMap {   // word -> doc id list with last-doc dedupe
     StrMap dict;
     std::vector<std::vector<int32_t>> lists;
-    void add(const uint32_t* p, int32_t n, int32_t doc) {
+    int32_t add(const uint32_t* p, int32_t n, int32_t doc) {
         bool added = false;
         int32_t id = dict.get_or_add(p, n, &added);
         if (added) lists.emplace_back();
+        add_id(id, doc);
+        return id;
+    }
+    void add_id(int32_t id, int32_t doc) {
         auto& v = lists[(size_t)id];
         if (v.empty() || v.back() != doc) v.push_back(doc);
     }
+};
+
+// Coverage token tables (ops/coverage_kernel.py _encode_doc_arrays), a
+// document's rows appended at a time.
+struct CovTables {
+    StrMap words;
+    std::vector<int32_t> doc_tokens, doc_offsets, doc_count, doc_text_len,
+        max_wlen;
+    std::vector<uint8_t> doc_adj, overflow;
+    int32_t d_max = 0, l_max = 0;
+    std::vector<std::pair<int64_t, int64_t>> toks;  // the last doc's words
+
+    void reserve(int64_t n_docs) {
+        doc_tokens.reserve((size_t)n_docs * d_max);
+        doc_offsets.reserve((size_t)n_docs * d_max);
+        doc_adj.reserve((size_t)n_docs * d_max);
+        doc_count.reserve((size_t)n_docs);
+        doc_text_len.reserve((size_t)n_docs);
+        overflow.reserve((size_t)n_docs);
+        max_wlen.reserve((size_t)n_docs);
+    }
+
+    void add_doc(const uint32_t* t, int64_t ln, const Delims& dl) {
+        const size_t d = doc_count.size();
+        const size_t row = d * (size_t)d_max;
+        doc_tokens.resize(row + d_max, -1);
+        doc_offsets.resize(row + d_max, 0);
+        doc_adj.resize(row + d_max, 0);
+        doc_text_len.push_back((int32_t)ln);
+        overflow.push_back(0);
+        max_wlen.push_back(0);
+        toks.clear();
+        for_each_word(t, ln, dl, [&](int64_t s, int64_t n) {
+            toks.emplace_back(s, n);
+        });
+        const size_t kept = std::min(toks.size(), (size_t)d_max);
+        if (toks.size() > kept) overflow[d] = 1;
+        doc_count.push_back((int32_t)kept);
+        for (size_t j = 0; j < kept; j++) {
+            int64_t off = toks[j].first;
+            int64_t wl = toks[j].second;
+            if (wl > l_max) {
+                overflow[d] = 1;
+                wl = l_max;
+            }
+            if ((int32_t)wl > max_wlen[d]) max_wlen[d] = (int32_t)wl;
+            doc_tokens[row + j] = words.get_or_add(t + off, (int32_t)wl,
+                                                   nullptr);
+            doc_offsets[row + j] = (int32_t)off;
+            if (j + 1 < kept) {
+                bool adj = true;
+                for (int64_t g = off + wl; g < toks[j + 1].first; g++)
+                    if (!py_isspace(t[g])) { adj = false; break; }
+                doc_adj[row + j] = adj ? 1 : 0;
+            }
+        }
+    }
+};
+
+// The per-document products of the pass (see the head of this section).
+struct Products {
+    // fold table, by code point: covered (the Python recipes are the
+    // per-code-point maps below), lower (str.lower), fold (the
+    // normalizer's map, then lower)
+    std::vector<uint8_t> covered;
+    std::vector<uint32_t> lower, fold;
+    bool collapse = false;  // runs of spaces collapse (standard whitespace)
+    std::vector<uint32_t> norm;  // normalized texts, concatenated
+    std::vector<int64_t> norm_off{0};
+    std::vector<uint8_t> lcs_slow;  // a surrogate or past the BMP: no UTF-16 = code points
+    CovTables cov;
+    DocListMap first;  // first word -> docs (FirstTokenIndex)
+    std::vector<int32_t> first_id, n_words;
+    DocListMap df;     // word -> live docs (word document frequency)
+    std::vector<int32_t> first_of, df_of;  // by coverage code: id or -1
+    std::vector<uint8_t> short_title;
+    std::vector<int64_t> text_prefix;
+    DocListMap sq_any, sq_first, sq_title;
+    std::vector<uint32_t> s, lo;  // a native document's two texts
 };
 
 struct Builder {
     // config
     std::vector<int32_t> sizes;
     int32_t start_pad, stop_pad;
-    std::vector<uint32_t> delims;    // sorted
+    Delims delims;
     int32_t remove_dups;
     int64_t stop_limit;
     std::vector<float> field_weights;
@@ -335,18 +495,20 @@ struct Builder {
     StrMap terms;
     std::vector<Postings> postings;
     DocListMap wm_exact, wm_ld1_map, wm_affix_map;
+    // a word's WordMatcher entries, found on its first occurrence: its
+    // id in wm_exact and in wm_affix_map (-1: out of the size range),
+    // then its LD1 deletions' ids in wm_ld1_map
+    StrMap wm_words;
+    std::vector<int64_t> wm_memo_off{0};
+    std::vector<int32_t> wm_memo;
     // prefix (packed key) -> (doc, token_pos) pairs
     StrMap sq_dict;
     std::vector<std::vector<int64_t>> sq_lists;  // doc<<32 | pos
+    std::unique_ptr<Products> prod;
 
-    // export scratch
-    std::vector<int64_t> exp_term_offsets;
-    std::vector<uint32_t> exp_blob;
-    std::vector<int64_t> exp_blob_offsets;
+    // scratch
+    std::vector<uint32_t> padded, scratch;
 
-    bool is_delim(uint32_t c) const {
-        return std::binary_search(delims.begin(), delims.end(), c);
-    }
     float weight_at(int32_t pos, const int32_t* bpos, const int32_t* bwidx,
                     int64_t nb) const {
         if (nb == 0) return 1.0f;
@@ -399,6 +561,198 @@ static void add_token(Builder* b, const uint32_t* p, int32_t n, int32_t doc,
     }
 }
 
+// The term, prefix and WordMatcher passes of one document over its
+// texts: t (normalize(index_text)), st (index_text) and wt
+// (WordMatcher._normalize of the raw text).
+static void index_doc(Builder* b, int32_t doc, const uint32_t* t,
+                      int64_t len, const uint32_t* st, int64_t sl,
+                      const uint32_t* wt, int64_t wlen, bool cont,
+                      const int32_t* bpos, const int32_t* bwidx, int64_t nb) {
+    if (len > 0) {
+        // ---- n-grams over the padded text -----------------------------
+        auto& padded = b->padded;
+        padded.clear();
+        if (!cont)
+            padded.insert(padded.end(), (size_t)b->start_pad,
+                          PAD_START);
+        padded.insert(padded.end(), t, t + len);
+        padded.insert(padded.end(), (size_t)b->stop_pad, PAD_STOP);
+        const int64_t pn = (int64_t)padded.size();
+
+        // _effective_sizes
+        int32_t max_size =
+            b->sizes.empty() ? 0 : b->sizes[b->sizes.size() - 1];
+        if (!b->sizes.empty() && pn <= b->sizes[0]) max_size = b->sizes[0];
+        for (int32_t size : b->sizes) {
+            if (pn >= size) {
+                for (int64_t i = 0; i + size <= pn; i++) {
+                    const uint32_t* g = padded.data() + i;
+                    bool all_pad = true;
+                    for (int32_t j = 0; j < size; j++) {
+                        if (g[j] != PAD_START && g[j] != PAD_STOP) {
+                            all_pad = false;
+                            break;
+                        }
+                    }
+                    if (all_pad) continue;
+                    float fw = b->weight_at((int32_t)i, bpos, bwidx, nb);
+                    add_token(b, g, size, doc, fw);
+                }
+            }
+            if (size == max_size) break;
+        }
+
+        // ---- whole words >= min n-gram size ----------------------------
+        const int32_t base = cont ? 0 : b->start_pad;
+        const int32_t min_size = b->sizes.empty() ? 1 : b->sizes[0];
+        for_each_word(t, len, b->delims, [&](int64_t start, int64_t wl) {
+            if (wl >= min_size) {
+                float fw = b->weight_at((int32_t)(base + start), bpos,
+                                        bwidx, nb);
+                add_token(b, t + start, (int32_t)wl, doc, fw);
+            }
+        });
+    }
+
+    // ---- short-query positional prefix index --------------------------
+    if (b->sq_enabled) {
+        int32_t token_index = 0;
+        for_each_word(st, sl, b->delims, [&](int64_t start, int64_t wl) {
+            int32_t maxp = (int32_t)std::min<int64_t>(wl, b->sq_max);
+            for (int32_t plen = b->sq_min; plen <= maxp; plen++) {
+                bool added = false;
+                int32_t id = b->sq_dict.get_or_add(st + start, plen, &added);
+                if (added) b->sq_lists.emplace_back();
+                b->sq_lists[(size_t)id].push_back(
+                    ((int64_t)doc << 32) | (uint32_t)token_index);
+            }
+            token_index++;
+        });
+    }
+
+    // ---- word matcher -------------------------------------------------
+    if (b->wm_enabled) {
+        auto& scratch = b->scratch;
+        auto& memo = b->wm_memo;
+        for_each_word(wt, wlen, b->delims, [&](int64_t start, int64_t wl) {
+            int32_t n = (int32_t)wl;
+            const uint32_t* w = wt + start;
+            bool added = false;
+            const int32_t wid = b->wm_words.get_or_add(w, n, &added);
+            if (!added) {  // the adds of its first occurrence, replayed
+                const int64_t lo = b->wm_memo_off[(size_t)wid];
+                const int64_t hi = b->wm_memo_off[(size_t)wid + 1];
+                if (memo[lo] >= 0) b->wm_exact.add_id(memo[lo], doc);
+                for (int64_t i = lo + 2; i < hi; i++)
+                    b->wm_ld1_map.add_id(memo[i], doc);
+                if (memo[lo + 1] >= 0) b->wm_affix_map.add_id(memo[lo + 1], doc);
+                return;
+            }
+            memo.push_back(n >= b->wm_min_exact && n <= b->wm_max_exact
+                           ? b->wm_exact.add(w, n, doc) : -1);
+            const size_t affix_at = memo.size();
+            memo.push_back(-1);
+            if (b->wm_ld1 && n >= b->wm_min_ld1 && n <= b->wm_max_ld1) {
+                scratch.resize((size_t)n - 1);
+                for (int32_t del = 0; del < n; del++) {
+                    int32_t k = 0;
+                    for (int32_t j = 0; j < n; j++)
+                        if (j != del) scratch[(size_t)k++] = w[j];
+                    memo.push_back(b->wm_ld1_map.add(scratch.data(), n - 1,
+                                                     doc));
+                }
+            }
+            if (b->wm_affix && n >= b->wm_min_ld1)
+                memo[affix_at] = b->wm_affix_map.add(w, n, doc);
+            b->wm_memo_off.push_back((int64_t)memo.size());
+        });
+    }
+}
+
+// The products of one document: nt its normalized text (coverage,
+// norm_texts, metadata, first token), dt the text its word document
+// frequencies count ("" when deleted), tt its lowered raw text (the
+// short-query doc tables).
+static void add_products(Builder* b, int32_t doc, const uint32_t* nt,
+                         int64_t nl, const uint32_t* dt, int64_t dl,
+                         const uint32_t* tt, int64_t tl, bool deleted) {
+    Products& P = *b->prod;
+    const Delims& delims = b->delims;
+    P.norm.insert(P.norm.end(), nt, nt + nl);
+    P.norm_off.push_back((int64_t)P.norm.size());
+    bool slow = false;
+    for (int64_t i = 0; i < nl; i++)
+        if (nt[i] >= 0xD800 && (nt[i] < 0xE000 || nt[i] >= 0x10000)) {
+            slow = true;
+            break;
+        }
+    P.lcs_slow.push_back(slow ? 1 : 0);
+
+    P.cov.add_doc(nt, nl, delims);
+    const auto& toks = P.cov.toks;
+    const size_t kept = (size_t)P.cov.doc_count.back();
+    const int32_t* codes = P.cov.doc_tokens.data() + P.cov.doc_tokens.size()
+                           - (size_t)P.cov.d_max;
+    if (P.first_of.size() < P.cov.words.keys.size()) {
+        P.first_of.resize(P.cov.words.keys.size(), -1);
+        P.df_of.resize(P.cov.words.keys.size(), -1);
+    }
+    // a word's first-word and df ids, through its coverage code where
+    // that code is the whole word
+    auto add_word = [&](DocListMap& m, std::vector<int32_t>& of, size_t j) {
+        const int64_t s = toks[j].first, n = toks[j].second;
+        if (j >= kept || n > P.cov.l_max)
+            return m.add(nt + s, (int32_t)n, doc);
+        int32_t& id = of[(size_t)codes[j]];
+        if (id < 0) id = m.add(nt + s, (int32_t)n, doc);
+        else m.add_id(id, doc);
+        return id;
+    };
+    P.n_words.push_back((int32_t)toks.size());
+    P.first_id.push_back(toks.empty() ? -1 : add_word(P.first, P.first_of, 0));
+
+    if (dt == nt && dl == nl) {
+        for (size_t j = 0; j < toks.size(); j++) add_word(P.df, P.df_of, j);
+    } else {
+        for_each_word(dt, dl, delims, [&](int64_t s, int64_t n) {
+            P.df.add(dt + s, (int32_t)n, doc);
+        });
+    }
+
+    if (!b->sq_enabled || deleted) {
+        P.short_title.push_back(0);
+        P.text_prefix.push_back(0);
+        return;
+    }
+    const int64_t max_p = b->sq_max;
+    uint64_t pack = 0;
+    for (int64_t j = 0; j < std::min(tl, max_p); j++)
+        pack = (pack << 21) | (uint64_t)(tt[j] + 1);
+    if (tl < max_p) pack <<= 21 * (max_p - tl);
+    P.text_prefix.push_back((int64_t)pack);
+    int64_t count = 0;
+    for_each_word(tt, tl, delims, [&](int64_t s, int64_t n) {
+        if (n <= max_p) {
+            if (count == 0) P.sq_first.add(tt + s, (int32_t)n, doc);
+            P.sq_any.add(tt + s, (int32_t)n, doc);
+        }
+        count++;
+    });
+    P.short_title.push_back(count <= 3 ? 1 : 0);
+    int64_t lo = 0, hi = tl;
+    while (lo < hi && py_isspace(tt[lo])) lo++;
+    while (hi > lo && py_isspace(tt[hi - 1])) hi--;
+    if (hi > lo && hi - lo <= max_p)
+        P.sq_title.add(tt + lo, (int32_t)(hi - lo), doc);
+}
+
+static bool covered(const Products& P, const uint32_t* r, int64_t n) {
+    const size_t m = P.covered.size();
+    for (int64_t i = 0; i < n; i++)
+        if (r[i] >= m || !P.covered[r[i]]) return false;
+    return true;
+}
+
 }  // namespace bulk
 
 extern "C" {
@@ -416,8 +770,7 @@ void* infidex_bulk_create(
     b->sizes.assign(index_sizes, index_sizes + n_sizes);
     b->start_pad = start_pad;
     b->stop_pad = stop_pad;
-    b->delims.assign(delims, delims + n_delims);
-    std::sort(b->delims.begin(), b->delims.end());
+    b->delims.assign(delims, n_delims);
     b->remove_dups = remove_dups;
     b->stop_limit = stop_limit;
     b->field_weights.assign(field_weights, field_weights + n_field_weights);
@@ -436,135 +789,111 @@ void* infidex_bulk_create(
 
 void infidex_bulk_free(void* h) { delete (bulk::Builder*)h; }
 
+// Turn the per-document products on: the fold table over code points
+// 0..n_cp-1 and the coverage tables' D and L.
+void infidex_bulk_products(void* h, const uint8_t* covered,
+                           const uint32_t* lower, const uint32_t* fold,
+                           int32_t n_cp, int32_t collapse, int32_t d_max,
+                           int32_t l_max, int64_t n_docs) {
+    auto* b = (bulk::Builder*)h;
+    b->prod.reset(new bulk::Products());
+    auto& P = *b->prod;
+    P.covered.assign(covered, covered + n_cp);
+    P.lower.assign(lower, lower + n_cp);
+    P.fold.assign(fold, fold + n_cp);
+    P.collapse = collapse != 0;
+    P.cov.d_max = d_max;
+    P.cov.l_max = l_max;
+    P.cov.reserve(n_docs);  // the number of documents to come, a hint
+}
+
+// flags[d] = 1 where document d holds a code point the fold table does
+// not cover: its texts come from the Python recipes.
+void infidex_bulk_classify(void* h, const uint32_t* text,
+                           const int64_t* offsets, int32_t n_docs,
+                           uint8_t* flags) {
+    auto* b = (bulk::Builder*)h;
+    for (int32_t d = 0; d < n_docs; d++)
+        flags[d] = bulk::covered(*b->prod, text + offsets[d],
+                                 offsets[d + 1] - offsets[d]) ? 0 : 1;
+}
+
+// One chunk of documents given as raw texts, products on. fb_docs (the
+// chunk's indexes, ascending) are the documents infidex_bulk_classify
+// flagged; fallback j's six texts are fb_text[fb_off[6j + k] ..] for k =
+// main, short-query, WordMatcher, normalized, word-df and title.
+void infidex_bulk_add_raw(
+    void* h, const uint32_t* text, const int64_t* offsets,
+    const int32_t* doc_ids, const uint8_t* is_cont, const uint8_t* deleted,
+    int32_t n_docs, const int32_t* fw_pos, const int32_t* fw_widx,
+    const int64_t* fw_off, const int32_t* fb_docs, int32_t n_fb,
+    const uint32_t* fb_text, const int64_t* fb_off) {
+    auto* b = (bulk::Builder*)h;
+    auto& P = *b->prod;
+    int32_t j = 0;
+    for (int32_t d = 0; d < n_docs; d++) {
+        const uint32_t* p[6];
+        int64_t n[6];
+        if (j < n_fb && fb_docs[j] == d) {
+            for (int k = 0; k < 6; k++) {
+                p[k] = fb_text + fb_off[6 * j + k];
+                n[k] = fb_off[6 * j + k + 1] - fb_off[6 * j + k];
+            }
+            j++;
+        } else {
+            // the recipes reduce to two texts: the folded text with space
+            // runs collapsed, and the lowered raw text
+            const uint32_t* r = text + offsets[d];
+            const int64_t len = offsets[d + 1] - offsets[d];
+            P.s.clear();
+            P.lo.clear();
+            bool prev_space = false;
+            for (int64_t i = 0; i < len; i++) {
+                P.lo.push_back(P.lower[r[i]]);
+                const uint32_t f = P.fold[r[i]];
+                if (P.collapse && f == 0x20) {
+                    if (prev_space) continue;
+                    prev_space = true;
+                } else {
+                    prev_space = false;
+                }
+                P.s.push_back(f);
+            }
+            for (int k = 0; k < 5; k++) {
+                p[k] = P.s.data();
+                n[k] = (int64_t)P.s.size();
+            }
+            if (deleted[d]) n[4] = 0;
+            p[5] = P.lo.data();
+            n[5] = (int64_t)P.lo.size();
+        }
+        bulk::index_doc(b, doc_ids[d], p[0], n[0], p[1], n[1], p[2], n[2],
+                        is_cont[d] != 0, fw_pos + fw_off[d],
+                        fw_widx + fw_off[d], fw_off[d + 1] - fw_off[d]);
+        bulk::add_products(b, doc_ids[d], p[3], n[3], p[4], n[4], p[5],
+                           n[5], deleted[d] != 0);
+    }
+}
+
+// One chunk of documents given as the three texts of index_doc, no
+// products (index/persistence.py rebuilds the WordMatcher and prefix
+// maps of a loaded index this way).
 void infidex_bulk_add(
     void* h,
-    // main tokenization text (normalize(index_text)) per doc
     const uint32_t* text, const int64_t* offsets,
-    // short-query text (index_text) per doc
     const uint32_t* sq_text, const int64_t* sq_offsets,
-    // word-matcher text (lower+normalize(raw)) per doc
     const uint32_t* wm_text, const int64_t* wm_offsets,
     const int32_t* doc_ids, const uint8_t* is_cont, int32_t n_docs,
     const int32_t* fw_pos, const int32_t* fw_widx, const int64_t* fw_off) {
     auto* b = (bulk::Builder*)h;
-    std::vector<uint32_t> padded;
-    std::vector<uint32_t> scratch;
-
-    for (int32_t d = 0; d < n_docs; d++) {
-        const int32_t doc = doc_ids[d];
-        const uint32_t* t = text + offsets[d];
-        const int64_t len = offsets[d + 1] - offsets[d];
-        const int32_t* bpos = fw_pos + fw_off[d];
-        const int32_t* bwidx = fw_widx + fw_off[d];
-        const int64_t nb = fw_off[d + 1] - fw_off[d];
-        const bool cont = is_cont[d] != 0;
-
-        if (len > 0) {
-            // ---- n-grams over the padded text -------------------------
-            padded.clear();
-            if (!cont)
-                padded.insert(padded.end(), (size_t)b->start_pad,
-                              bulk::PAD_START);
-            padded.insert(padded.end(), t, t + len);
-            padded.insert(padded.end(), (size_t)b->stop_pad, bulk::PAD_STOP);
-            const int64_t pn = (int64_t)padded.size();
-
-            // _effective_sizes
-            int32_t max_size =
-                b->sizes.empty() ? 0 : b->sizes[b->sizes.size() - 1];
-            if (!b->sizes.empty() && pn <= b->sizes[0]) max_size = b->sizes[0];
-            for (int32_t size : b->sizes) {
-                if (pn >= size) {
-                    for (int64_t i = 0; i + size <= pn; i++) {
-                        const uint32_t* g = padded.data() + i;
-                        bool all_pad = true;
-                        for (int32_t j = 0; j < size; j++) {
-                            if (g[j] != bulk::PAD_START &&
-                                g[j] != bulk::PAD_STOP) {
-                                all_pad = false;
-                                break;
-                            }
-                        }
-                        if (all_pad) continue;
-                        float fw = b->weight_at((int32_t)i, bpos, bwidx, nb);
-                        bulk::add_token(b, g, size, doc, fw);
-                    }
-                }
-                if (size == max_size) break;
-            }
-
-            // ---- whole words >= min n-gram size ------------------------
-            const int32_t base = cont ? 0 : b->start_pad;
-            const int32_t min_size = b->sizes.empty() ? 1 : b->sizes[0];
-            int64_t i = 0;
-            while (i < len) {
-                while (i < len && b->is_delim(t[i])) i++;
-                if (i >= len) break;
-                int64_t start = i;
-                while (i < len && !b->is_delim(t[i])) i++;
-                int64_t wl = i - start;
-                if (wl >= min_size) {
-                    float fw = b->weight_at((int32_t)(base + start), bpos,
-                                            bwidx, nb);
-                    bulk::add_token(b, t + start, (int32_t)wl, doc, fw);
-                }
-            }
-        }
-
-        // ---- short-query positional prefix index ----------------------
-        if (b->sq_enabled) {
-            const uint32_t* st = sq_text + sq_offsets[d];
-            const int64_t sl = sq_offsets[d + 1] - sq_offsets[d];
-            int64_t i = 0;
-            int32_t token_index = 0;
-            while (i < sl) {
-                while (i < sl && b->is_delim(st[i])) i++;
-                int64_t start = i;
-                while (i < sl && !b->is_delim(st[i])) i++;
-                int64_t wl = i - start;
-                if (wl > 0) {
-                    int32_t maxp = (int32_t)std::min<int64_t>(wl, b->sq_max);
-                    for (int32_t plen = b->sq_min; plen <= maxp; plen++) {
-                        bool added = false;
-                        int32_t id = b->sq_dict.get_or_add(st + start, plen,
-                                                           &added);
-                        if (added) b->sq_lists.emplace_back();
-                        b->sq_lists[(size_t)id].push_back(
-                            ((int64_t)doc << 32) | (uint32_t)token_index);
-                    }
-                    token_index++;
-                }
-            }
-        }
-
-        // ---- word matcher ---------------------------------------------
-        if (b->wm_enabled) {
-            const uint32_t* wt = wm_text + wm_offsets[d];
-            const int64_t wlen = wm_offsets[d + 1] - wm_offsets[d];
-            int64_t i = 0;
-            while (i < wlen) {
-                while (i < wlen && b->is_delim(wt[i])) i++;
-                if (i >= wlen) break;
-                int64_t start = i;
-                while (i < wlen && !b->is_delim(wt[i])) i++;
-                int32_t n = (int32_t)(i - start);
-                const uint32_t* w = wt + start;
-                if (n >= b->wm_min_exact && n <= b->wm_max_exact)
-                    b->wm_exact.add(w, n, doc);
-                if (b->wm_ld1 && n >= b->wm_min_ld1 && n <= b->wm_max_ld1) {
-                    scratch.resize((size_t)n - 1);
-                    for (int32_t del = 0; del < n; del++) {
-                        int32_t k = 0;
-                        for (int32_t j = 0; j < n; j++)
-                            if (j != del) scratch[(size_t)k++] = w[j];
-                        b->wm_ld1_map.add(scratch.data(), n - 1, doc);
-                    }
-                }
-                if (b->wm_affix && n >= b->wm_min_ld1)
-                    b->wm_affix_map.add(w, n, doc);
-            }
-        }
-    }
+    for (int32_t d = 0; d < n_docs; d++)
+        bulk::index_doc(b, doc_ids[d], text + offsets[d],
+                        offsets[d + 1] - offsets[d], sq_text + sq_offsets[d],
+                        sq_offsets[d + 1] - sq_offsets[d],
+                        wm_text + wm_offsets[d],
+                        wm_offsets[d + 1] - wm_offsets[d], is_cont[d] != 0,
+                        fw_pos + fw_off[d], fw_widx + fw_off[d],
+                        fw_off[d + 1] - fw_off[d]);
 }
 
 // ---- export: terms + CSR postings ----------------------------------
@@ -618,35 +947,41 @@ void infidex_bulk_copy_postings(void* h, int64_t* term_offsets,
     term_offsets[b->postings.size()] = pos;
 }
 
-// ---- export: word-matcher maps (which: 0=exact 1=ld1 2=affix) -------
+// ---- export: word -> docs maps ---------------------------------------
+// which: 0 WordMatcher exact, 1 LD1, 2 affix; with the products on,
+// 3 first word, 4 word df, 5-7 short-query any / first / title.
 
-static bulk::DocListMap* wm_map(void* h, int32_t which) {
+static bulk::DocListMap* doc_map(void* h, int32_t which) {
     auto* b = (bulk::Builder*)h;
-    if (which == 0) return &b->wm_exact;
-    if (which == 1) return &b->wm_ld1_map;
-    return &b->wm_affix_map;
+    bulk::DocListMap* maps[8] = {
+        &b->wm_exact, &b->wm_ld1_map, &b->wm_affix_map,
+        b->prod ? &b->prod->first : nullptr, b->prod ? &b->prod->df : nullptr,
+        b->prod ? &b->prod->sq_any : nullptr,
+        b->prod ? &b->prod->sq_first : nullptr,
+        b->prod ? &b->prod->sq_title : nullptr};
+    return maps[which];
 }
 
-int64_t infidex_bulk_wm_num_keys(void* h, int32_t which) {
-    return (int64_t)wm_map(h, which)->dict.keys.size();
+int64_t infidex_bulk_map_num_keys(void* h, int32_t which) {
+    return (int64_t)doc_map(h, which)->dict.keys.size();
 }
 
-int64_t infidex_bulk_wm_blob_len(void* h, int32_t which) {
+int64_t infidex_bulk_map_blob_len(void* h, int32_t which) {
     int64_t n = 0;
-    for (auto& k : wm_map(h, which)->dict.keys) n += k.n;
+    for (auto& k : doc_map(h, which)->dict.keys) n += k.n;
     return n;
 }
 
-int64_t infidex_bulk_wm_docs_len(void* h, int32_t which) {
+int64_t infidex_bulk_map_docs_len(void* h, int32_t which) {
     int64_t n = 0;
-    for (auto& v : wm_map(h, which)->lists) n += (int64_t)v.size();
+    for (auto& v : doc_map(h, which)->lists) n += (int64_t)v.size();
     return n;
 }
 
-void infidex_bulk_copy_wm(void* h, int32_t which, uint32_t* blob,
-                          int64_t* key_offsets, int64_t* doc_offsets,
-                          int32_t* doc_ids) {
-    auto* m = wm_map(h, which);
+void infidex_bulk_copy_map(void* h, int32_t which, uint32_t* blob,
+                           int64_t* key_offsets, int64_t* doc_offsets,
+                           int32_t* doc_ids) {
+    auto* m = doc_map(h, which);
     int64_t bpos = 0, dpos = 0;
     for (size_t i = 0; i < m->dict.keys.size(); i++) {
         key_offsets[i] = bpos;
@@ -698,38 +1033,43 @@ void infidex_bulk_copy_sq(void* h, uint32_t* blob, int64_t* key_offsets,
     post_offsets[b->sq_dict.keys.size()] = ppos;
 }
 
+// ---- export: per-document products -------------------------------------
+
+int64_t infidex_bulk_num_docs(void* h) {
+    return (int64_t)((bulk::Builder*)h)->prod->first_id.size();
+}
+
+int64_t infidex_bulk_norm_len(void* h) {
+    return (int64_t)((bulk::Builder*)h)->prod->norm.size();
+}
+
+void infidex_bulk_copy_docs(void* h, uint32_t* norm, int64_t* norm_off,
+                            uint8_t* lcs_slow, int32_t* first_id,
+                            int32_t* n_words, uint8_t* short_title,
+                            int64_t* text_prefix) {
+    auto& P = *((bulk::Builder*)h)->prod;
+    const size_t n = P.first_id.size();
+    std::memcpy(norm, P.norm.data(), P.norm.size() * 4);
+    std::memcpy(norm_off, P.norm_off.data(), (n + 1) * 8);
+    std::memcpy(lcs_slow, P.lcs_slow.data(), n);
+    std::memcpy(first_id, P.first_id.data(), n * 4);
+    std::memcpy(n_words, P.n_words.data(), n * 4);
+    std::memcpy(short_title, P.short_title.data(), n);
+    std::memcpy(text_prefix, P.text_prefix.data(), n * 8);
+}
+
+// the coverage tables, read by infidex_cov_num_words / infidex_cov_copy
+// (the builder owns them)
+void* infidex_bulk_cov(void* h) { return &((bulk::Builder*)h)->prod->cov; }
+
 }  // extern "C"
 
 // ===================================================================
-// Coverage token tables + per-doc word stats (ops/coverage_kernel.py
-// CoverageTables.build and VectorModel._build_word_idf_cache /
-// _build_document_metadata_cache loop replacements).
+// Coverage token tables and word document frequencies of a list of
+// normalized texts, outside the bulk pass (ops/coverage_kernel.py
+// CoverageTables.build and VectorModel._native_word_df after appends,
+// loads and segment builds).
 // ===================================================================
-
-namespace bulk {
-
-static bool py_isspace(uint32_t c) {
-    // mirrors str.isspace() for the code points that can appear in
-    // delimiter gaps
-    if (c >= 0x09 && c <= 0x0D) return true;
-    if (c >= 0x1C && c <= 0x1F) return true;
-    if (c == 0x20 || c == 0x85 || c == 0xA0 || c == 0x1680) return true;
-    if (c >= 0x2000 && c <= 0x200A) return true;
-    if (c == 0x2028 || c == 0x2029 || c == 0x202F || c == 0x205F ||
-        c == 0x3000)
-        return true;
-    return false;
-}
-
-struct CovTables {
-    StrMap words;
-    std::vector<int32_t> doc_tokens, doc_offsets, doc_count, doc_text_len,
-        max_wlen;
-    std::vector<uint8_t> doc_adj, overflow;
-    int32_t d_max, l_max;
-};
-
-}  // namespace bulk
 
 extern "C" {
 
@@ -739,59 +1079,11 @@ void* infidex_cov_build(const uint32_t* text, const int64_t* offsets,
     auto* ct = new bulk::CovTables();
     ct->d_max = d_max;
     ct->l_max = l_max;
-    std::vector<uint32_t> sorted_delims(delims, delims + n_delims);
-    std::sort(sorted_delims.begin(), sorted_delims.end());
-    auto is_delim = [&](uint32_t c) {
-        return std::binary_search(sorted_delims.begin(), sorted_delims.end(),
-                                  c);
-    };
-    ct->doc_tokens.assign((size_t)n_docs * d_max, -1);
-    ct->doc_offsets.assign((size_t)n_docs * d_max, 0);
-    ct->doc_count.assign((size_t)n_docs, 0);
-    ct->doc_adj.assign((size_t)n_docs * d_max, 0);
-    ct->doc_text_len.assign((size_t)n_docs, 0);
-    ct->overflow.assign((size_t)n_docs, 0);
-    ct->max_wlen.assign((size_t)n_docs, 0);
-
-    std::vector<std::pair<int64_t, int64_t>> toks;  // (start, len)
-    for (int64_t d = 0; d < n_docs; d++) {
-        const uint32_t* t = text + offsets[d];
-        const int64_t ln = offsets[d + 1] - offsets[d];
-        ct->doc_text_len[(size_t)d] = (int32_t)ln;
-        toks.clear();
-        int64_t i = 0;
-        while (i < ln) {
-            while (i < ln && is_delim(t[i])) i++;
-            int64_t start = i;
-            while (i < ln && !is_delim(t[i])) i++;
-            if (i > start) toks.emplace_back(start, i - start);
-        }
-        if ((int64_t)toks.size() > ct->d_max) {
-            ct->overflow[(size_t)d] = 1;
-            toks.resize((size_t)ct->d_max);
-        }
-        ct->doc_count[(size_t)d] = (int32_t)toks.size();
-        for (size_t j = 0; j < toks.size(); j++) {
-            int64_t off = toks[j].first;
-            int64_t wl = toks[j].second;
-            if (wl > ct->l_max) {
-                ct->overflow[(size_t)d] = 1;
-                wl = ct->l_max;
-            }
-            if ((int32_t)wl > ct->max_wlen[(size_t)d])
-                ct->max_wlen[(size_t)d] = (int32_t)wl;
-            int32_t code = ct->words.get_or_add(t + off, (int32_t)wl,
-                                                nullptr);
-            ct->doc_tokens[(size_t)d * ct->d_max + j] = code;
-            ct->doc_offsets[(size_t)d * ct->d_max + j] = (int32_t)off;
-            if (j + 1 < toks.size()) {
-                bool adj = true;
-                for (int64_t g = off + wl; g < toks[j + 1].first; g++)
-                    if (!bulk::py_isspace(t[g])) { adj = false; break; }
-                ct->doc_adj[(size_t)d * ct->d_max + j] = adj ? 1 : 0;
-            }
-        }
-    }
+    bulk::Delims dl;
+    dl.assign(delims, n_delims);
+    ct->reserve(n_docs);
+    for (int64_t d = 0; d < n_docs; d++)
+        ct->add_doc(text + offsets[d], offsets[d + 1] - offsets[d], dl);
     return ct;
 }
 
@@ -828,31 +1120,22 @@ void infidex_cov_copy(void* h, int32_t* word_chars, int32_t* word_chars_rev,
 
 void infidex_cov_free(void* h) { delete (bulk::CovTables*)h; }
 
-// ---- per-doc word stats: word df (unique docs) + first token + count --
+// ---- word df (unique docs) ------------------------------------------
 
 void* infidex_wordstats_build(const uint32_t* text, const int64_t* offsets,
                               int64_t n_docs, const uint32_t* delims,
                               int32_t n_delims, const uint8_t* skip) {
     // skip[d] != 0 -> doc excluded (deleted / empty)
     auto* m = new bulk::DocListMap();
-    std::vector<uint32_t> sorted_delims(delims, delims + n_delims);
-    std::sort(sorted_delims.begin(), sorted_delims.end());
-    auto is_delim = [&](uint32_t c) {
-        return std::binary_search(sorted_delims.begin(), sorted_delims.end(),
-                                  c);
-    };
+    bulk::Delims dl;
+    dl.assign(delims, n_delims);
     for (int64_t d = 0; d < n_docs; d++) {
         if (skip && skip[d]) continue;
         const uint32_t* t = text + offsets[d];
-        const int64_t ln = offsets[d + 1] - offsets[d];
-        int64_t i = 0;
-        while (i < ln) {
-            while (i < ln && is_delim(t[i])) i++;
-            int64_t start = i;
-            while (i < ln && !is_delim(t[i])) i++;
-            if (i > start)
-                m->add(t + start, (int32_t)(i - start), (int32_t)d);
-        }
+        bulk::for_each_word(t, offsets[d + 1] - offsets[d], dl,
+                            [&](int64_t s, int64_t n) {
+                                m->add(t + s, (int32_t)n, (int32_t)d);
+                            });
     }
     return m;
 }

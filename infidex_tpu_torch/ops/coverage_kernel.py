@@ -141,8 +141,9 @@ def _tables_from_arrays(word_chars, word_chars_rev, word_lens, doc_tokens,
     def padded(arr, rows, fill=0):
         if arr.shape[0] == rows:
             return arr
-        out = np.full((rows,) + arr.shape[1:], fill, dtype=arr.dtype)
+        out = np.empty((rows,) + arr.shape[1:], dtype=arr.dtype)
         out[: arr.shape[0]] = arr
+        out[arr.shape[0]:] = fill
         return out
 
     return CoverageTables(
@@ -189,10 +190,19 @@ class CoverageTables:
     def build(doc_texts, delimiters, device=None) -> "CoverageTables":
         """Encode normalized lowercase doc texts into token tables on
         ``device`` (default ``runtime.device()``)."""
+        return CoverageTables.from_arrays(
+            _encode_doc_arrays(doc_texts, delimiters), doc_texts, device)
+
+    @staticmethod
+    def from_arrays(arrays, doc_texts, device=None,
+                    text_blob=None) -> "CoverageTables":
+        """The tables of ``_encode_doc_arrays``' bundle ``arrays`` for the
+        texts ``doc_texts``; ``text_blob`` (the bulk pass's UTF-32 texts,
+        offsets and per-text flags, see ``_attach_text_lcs``) spares
+        encoding the texts again."""
         dev = torch.device(device) if device is not None else runtime.device()
-        arrays = _encode_doc_arrays(doc_texts, delimiters)
         t = _tables_from_arrays(*arrays, dev)
-        _attach_text_lcs(t, doc_texts)
+        _attach_text_lcs(t, doc_texts, text_blob)
         return t
 
     def append_texts(self, doc_texts, delimiters, start_id: int) -> bool:
@@ -368,21 +378,24 @@ def _encode_doc_arrays(doc_texts, delimiters):
             doc_count, doc_adj, doc_text_len, overflow, max_wlen)
 
 
-def _attach_text_lcs(tables: CoverageTables, doc_texts) -> None:
+def _attach_text_lcs(tables: CoverageTables, doc_texts,
+                     text_blob=None) -> None:
     """Build + upload the [N, T] utf-16 text table for the fake-LCS (N
     padded like the token tables; T the smallest T_LCS_BUCKETS entry that
-    covers the corpus' longest eligible text)."""
+    covers the corpus' longest eligible text).
+
+    ``text_blob``: (UTF-32 blob, offsets, slow) of ``doc_texts``, slow
+    where a text's UTF-16 code units are not its code points (a surrogate
+    or a code point past the BMP). The other texts' rows are copied from
+    the blob; only the slow ones are encoded."""
     n_pad = int(tables.doc_tok_count.shape[0])
+    if text_blob is not None:
+        _attach_text_lcs_blob(tables, doc_texts, n_pad, *text_blob)
+        return
     encs = [t.encode("utf-16-le") for t in doc_texts]
     lens = np.fromiter((len(b) >> 1 for b in encs), np.int64,
                        len(encs)) if encs else np.zeros(0, np.int64)
-    t_cap = T_LCS_BUCKETS[0]
-    if lens.size:
-        longest = int(lens[lens <= T_LCS_BUCKETS[-1]].max(initial=0))
-        for b in T_LCS_BUCKETS:
-            if b >= longest:
-                t_cap = b
-                break
+    t_cap = _lcs_cap(lens)
     chars = np.zeros((n_pad, t_cap), np.uint16)
     ok = np.zeros(n_pad, bool)
     for i, b in enumerate(encs):
@@ -390,6 +403,42 @@ def _attach_text_lcs(tables: CoverageTables, doc_texts) -> None:
         if 0 < m <= t_cap:
             chars[i, :m] = np.frombuffer(b, "<u2")
             ok[i] = True
+    _upload_text_lcs(tables, chars, ok)
+
+
+def _lcs_cap(lens: np.ndarray) -> int:
+    t_cap = T_LCS_BUCKETS[0]
+    if lens.size:
+        longest = int(lens[lens <= T_LCS_BUCKETS[-1]].max(initial=0))
+        for b in T_LCS_BUCKETS:
+            if b >= longest:
+                t_cap = b
+                break
+    return t_cap
+
+
+def _attach_text_lcs_blob(tables, doc_texts, n_pad, blob, offsets, slow):
+    n = offsets.size - 1
+    lens = np.diff(offsets)
+    slow_ids = np.flatnonzero(slow)
+    encs = {i: doc_texts[i].encode("utf-16-le") for i in slow_ids.tolist()}
+    for i, b in encs.items():
+        lens[i] = len(b) >> 1
+    t_cap = _lcs_cap(lens)
+    chars = np.zeros((n_pad, t_cap), np.uint16)
+    ok = np.zeros(n_pad, bool)
+    ok[:n] = (lens > 0) & (lens <= t_cap)
+    fast = ok[:n] & ~slow
+    cols = np.arange(t_cap)
+    chars[:n][fast[:, None] & (cols < lens[:, None])] = \
+        blob[:offsets[-1]][np.repeat(fast, np.diff(offsets))]
+    for i, b in encs.items():
+        if ok[i]:
+            chars[i, :len(b) >> 1] = np.frombuffer(b, "<u2")
+    _upload_text_lcs(tables, chars, ok)
+
+
+def _upload_text_lcs(tables, chars, ok) -> None:
     # surrogate pairs: code units no longer align with Python chars
     ok &= ~((chars >= 0xD800) & (chars < 0xE000)).any(axis=1)
     dev = tables.doc_tok_count.device
