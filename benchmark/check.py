@@ -1,13 +1,19 @@
 """The comparison that decides ``correct``.
 
-After the window a run draws from the seed a sample of the queries it
-answered and serves them once more through the same entry, with the
-pipeline's state read (``Capture``): each query's candidates with their
-Stage-1 base scores, whether a WordMatcher list held a document, and its
-Stage-1 list. The plain reference (``benchmark/reference/``) works out
-Stage 1 again from the texts, and scores every candidate again and ranks
-them. Four numbers, each with the limit 0 (the configurations guarantee
-exact results):
+After the window a run draws from the seed some of the calls the window
+made and a sample of their queries (``draw_sample``), and serves those
+calls once more, whole, through the same entry, with the pipeline's
+state read (``Capture``, ``replay_calls``): each query's candidates with
+their Stage-1 base scores, whether a WordMatcher list held a document,
+and its Stage-1 list. A call is served again whole because a query's
+candidates may depend on the other queries of its batch: the Stage-1
+route of a batch's stragglers is chosen by their number and their
+postings. The calls' states are merged into rounds that read one state
+a text (``rounds``), each round is judged by the deployment's reference,
+and the rounds' numbers add up (``total``). The titles reference
+(``benchmark/reference/``) works out Stage 1 again from the texts, and
+scores every candidate again and ranks them (``judge``). Four numbers,
+each with the limit 0 (the configurations guarantee exact results):
 
 * ``mismatched``: sampled queries whose answer in the window differs from
   the reference's in any document, place or float32 score, or has none;
@@ -23,7 +29,8 @@ exact results):
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import unicodedata
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,6 +42,9 @@ LIMITS = {"mismatched": 0, "stage1_scores": 0, "stage1_top": 0,
           "replay_differs": 0}
 #: the Stage-1 list's length: the queries' coverage depth
 DEPTH = 500
+#: the fewest calls of the window a run serves again, so that its sample
+#: spreads over the window
+MIN_CALLS = 4
 
 
 def answer_of(result) -> Optional[list]:
@@ -85,6 +95,92 @@ class Capture:
     def restore(self) -> None:
         for attr in ("_coverage_gate", "_coverage_run_begin"):
             self.pipe.__dict__.pop(attr, None)
+
+
+def _loose(text: str) -> str:
+    """A text as loosely as the engine could read it: marks dropped,
+    case folded, spaces collapsed."""
+    text = unicodedata.normalize("NFKD", text)
+    text = "".join(c for c in text if not unicodedata.combining(c))
+    return " ".join(text.casefold().split())
+
+
+def draw_sample(rng, specs: Sequence, calls: Sequence[Tuple[int, int]],
+                n: int) -> Tuple[List[int], List[int]]:
+    """The window's calls to serve again and the sample judged in them:
+    calls (``(first, end)`` ranges of ``specs``) drawn in random order
+    until there are ``MIN_CALLS`` or more holding ``n`` or more queries
+    that can be judged, then ``n`` of those. A query cannot be judged
+    where another query of its call has its text with other options
+    (the pipeline keys what ``Capture`` reads by text). Returns the drawn
+    calls' positions in ``calls`` and the sampled indices of ``specs``,
+    both in window order."""
+    order = list(range(len(calls)))
+    rng.shuffle(order)
+    drawn: List[int] = []
+    pool: List[int] = []
+    for c in order:
+        if len(drawn) >= MIN_CALLS and len(pool) >= n:
+            break
+        drawn.append(c)
+        lo, hi = calls[c]
+        options: Dict[str, set] = {}
+        for i in range(lo, hi):
+            options.setdefault(_loose(specs[i].text), set()).add(
+                specs[i].options)
+        pool += [i for i in range(lo, hi)
+                 if len(options[_loose(specs[i].text)]) == 1]
+    return sorted(drawn), sorted(rng.sample(pool, min(n, len(pool))))
+
+
+def replay_calls(replay: Callable, pipeline, specs: Sequence,
+                 calls: Sequence[Tuple[int, int]], top: int
+                 ) -> List[Tuple[list, Dict[str, dict]]]:
+    """Each call served again whole through ``replay``, as the window
+    served it (a query's candidates may depend on the batch it is in),
+    with the pipeline's state read: (answers, state keyed by text) a
+    call."""
+    out = []
+    for lo, hi in calls:
+        cap = Capture(pipeline, top)
+        try:
+            got = [answer_of(r) for r in replay(list(specs[lo:hi]))]
+        finally:
+            cap.restore()
+        out.append((got, cap.state))
+    return out
+
+
+def rounds(states: Sequence[Dict[str, dict]]
+           ) -> List[Tuple[List[int], Dict[str, dict]]]:
+    """The calls' states merged into as few rounds as keep one state a
+    text: a call joins the first round in which none of its texts read
+    otherwise. Returns (call positions, merged state) a round."""
+    out: List[Tuple[List[int], Dict[str, dict]]] = []
+    for p, st in enumerate(states):
+        for members, merged in out:
+            if all(merged.get(k, v) == v for k, v in st.items()):
+                members.append(p)
+                merged.update(st)
+                break
+        else:
+            out.append(([p], dict(st)))
+    return out
+
+
+def total(parts: List[Dict[str, dict]]) -> Dict[str, dict]:
+    """The numbers of several rounds added up, name by name."""
+    out: Dict[str, dict] = {}
+    for numbers in parts:
+        for name, v in numbers.items():
+            have = out.setdefault(name, {"value": 0, "limit": v["limit"],
+                                         "of": 0})
+            if have["limit"] != v["limit"]:
+                raise ValueError(f"check {name}: limits {have['limit']} "
+                                 f"and {v['limit']} in one run")
+            have["value"] += v["value"]
+            have["of"] += v["of"]
+    return out
 
 
 def stage1_verdict(index: Stage1Index, text: str, got: list):

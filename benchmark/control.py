@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """The control's readings: the reference, computed in the precision below
-the one the configuration states, put in the program's place.
+the one the configuration states, put in the program's place. It is the
+control of the titles deployment (``deployments/titles.py``): the
+titles reference's answers with bfloat16 final scores.
 
     python3 benchmark/control.py --workloads <cell>[,<cell>...] \
         --seeds <n>,<n>,... [--window-queries N]
 
 On a CUDA card (the tests call ``readings`` on the CPU). For each seed: the program set up as a run sets it up (one index serves every
-named cell of one configuration), each cell's check sample drawn as a run
-draws it from the first ``N`` queries of its timed stream and served
-through the cell's entry with the candidates read (``check.Capture``).
+named cell of one configuration), as many queries as a run samples
+drawn from the first ``N`` queries of each cell's timed stream (its
+traffic's generator) and served in one call through the cell's entry
+with the candidates read (``check.Capture``); the control's answers and
+the reference both come from that state, so the call's shape does not
+matter here.
 The reference then answers the sample with its final scores rounded to
 bfloat16 (the control, below the configuration's float32), and
 ``check.judge`` compares those answers, and the Stage-1 lists with their
@@ -20,7 +25,6 @@ come out failing them.
 import argparse
 import copy
 import gc
-import importlib
 import json
 import os
 import sys
@@ -31,9 +35,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from benchmark import check, queries, run  # noqa: E402
+from benchmark import check, generators, run  # noqa: E402
 from benchmark.reference import answers  # noqa: E402
-from benchmark.reference.stats import Corpus  # noqa: E402
 
 
 def bf16(x: float) -> float:
@@ -43,29 +46,31 @@ def bf16(x: float) -> float:
     return float(np.uint32(bits).view(np.float32))
 
 
-def sample_texts(tr: dict, seed: int, n: int, titles) -> list:
-    rngs = queries.streams(seed)
-    texts = queries.make_queries(titles, tr["kinds"], n, rngs["timed"])
+def sample_specs(gen, made, tr: dict, seed: int, n: int) -> list:
+    rngs = generators.streams(seed)
+    specs = gen.queries(made, tr, n, rngs["timed"])
     k = min(tr["check_sample"], n)
-    return [texts[i] for i in sorted(rngs["sample"].sample(range(n), k))]
+    return [specs[i] for i in sorted(rngs["sample"].sample(range(n), k))]
 
 
 def readings(manifest, names, seed, window_queries, device="cuda",
              shrink=None):
     ctx, _ = run.set_up(manifest, names[0], seed, device, shrink,
                         warm=False)
-    ref = Corpus(ctx.titles)
+    ref = ctx.dep.reference(ctx.made)
     out = []
     for name in names:
         cell = run.cell_of(manifest, name)
         tr = copy.deepcopy(cell["traffic_data"])
         tr.update((shrink or {}).get("traffic", {}))
         ctx.traffic = tr
-        entry = importlib.import_module(f"benchmark.entries.{tr['entry']}")
-        texts = sample_texts(tr, seed, window_queries, ctx.titles)
+        ctx.gen = run._module("generators", tr["generator"])
+        entry = run._module("entries", tr["entry"])
+        specs = sample_specs(ctx.gen, ctx.made, tr, seed, window_queries)
+        texts = [s.text for s in specs]
         cap = check.Capture(ctx.eng._pipeline, tr["top"])
         try:
-            entry.replay(ctx, texts)
+            entry.replay(ctx, specs)
         finally:
             cap.restore()
         t = time.perf_counter()

@@ -19,45 +19,46 @@ import sys
 import time
 import traceback
 
-from .. import queries as Q
+from . import make_query
 
 
-def _texts(ctx, rng_name: str):
+def _specs(ctx, rng_name: str):
     tr = ctx.traffic
-    return Q.make_queries(ctx.titles, tr["kinds"],
-                          tr["batch_size"] * tr["call_batches"],
-                          ctx.rngs[rng_name])
+    return ctx.gen.queries(ctx.made, tr, tr["batch_size"] * tr["call_batches"],
+                           ctx.rngs[rng_name])
 
 
-def _serve(ctx, texts):
+def _serve(ctx, specs):
     tr = ctx.traffic
-    return ctx.eng.search_many([ctx.it.Query(t, tr["top"]) for t in texts],
-                               batch_size=tr["batch_size"])
+    return ctx.eng.search_many(
+        [make_query(ctx.it, s, tr["top"]) for s in specs],
+        batch_size=tr["batch_size"])
 
 
 def warm_up(ctx) -> list:
     """The warm-up calls' rates, queries/s."""
     rates = []
     for _ in range(ctx.traffic["warmup_calls"]):
-        texts = _texts(ctx, "warmup")
+        specs = _specs(ctx, "warmup")
         t0 = time.perf_counter()
-        _serve(ctx, texts)
-        rates.append(len(texts) / (time.perf_counter() - t0))
+        _serve(ctx, specs)
+        rates.append(len(specs) / (time.perf_counter() - t0))
     return rates
 
 
 def window(ctx, seconds: float, rec) -> dict:
     bs = ctx.traffic["batch_size"]
-    texts, answers, failed = [], [], 0
+    specs, answers, calls, failed = [], [], [], 0
     t0 = time.perf_counter()
     while True:
-        chunk = _texts(ctx, "timed")
+        chunk = _specs(ctx, "timed")
         try:
             res = _serve(ctx, chunk)
         except Exception:          # a failed call: its queries count failed
             traceback.print_exc(file=sys.stderr)
             res, failed = [None] * len(chunk), failed + len(chunk)
-        texts += chunk
+        calls.append((len(specs), len(specs) + len(chunk)))
+        specs += chunk
         answers += res
         if rec is not None:
             rec.batches += -(-len(chunk) // bs)
@@ -66,12 +67,13 @@ def window(ctx, seconds: float, rec) -> dict:
     t1 = time.perf_counter()
     if rec is not None:
         rec.window = (t0, t1)
-    return dict(metrics={"qps": (len(texts) - failed) / (t1 - t0)},
-                attempted=len(texts), failed=failed, texts=texts,
-                answers=answers, load={"calls": len(texts) // len(chunk),
+    return dict(metrics={"qps": (len(specs) - failed) / (t1 - t0)},
+                attempted=len(specs), failed=failed, specs=specs,
+                answers=answers, calls=calls, load={"calls": len(calls),
                                        "window_s": t1 - t0})
 
 
-def replay(ctx, texts):
-    """``texts`` served again through the window's call."""
-    return _serve(ctx, texts)
+def replay(ctx, specs):
+    """``specs`` (one call of the window) served again through the
+    window's call."""
+    return _serve(ctx, specs)

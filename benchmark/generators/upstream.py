@@ -1,4 +1,4 @@
-"""Query streams, made from a seed and a traffic file.
+"""The upstream's query kinds, drawn from the titles a deployment made.
 
 The query kinds are those of the upstream benchmark (Infidex.Benchmark
 ``QueryBenchmarks.cs:134-157``, one benchmark method each: "Shawshank",
@@ -17,13 +17,15 @@ The query kinds are those of the upstream benchmark (Infidex.Benchmark
 Titles are drawn uniformly from the corpus. A traffic file's ``kinds``
 gives each kind's weight as a whole number; every block of sum(weights)
 queries holds each kind that many times, in an order drawn from the seed,
-so every seed sends the same mix.
+so every seed sends the same mix. The ``Spec``s carry no options.
 """
 
 from __future__ import annotations
 
 import random
 from typing import Dict, List
+
+from . import Spec
 
 KINDS = ("exact", "typo", "split", "partial")
 
@@ -77,7 +79,8 @@ def make_queries(titles: List[str], kinds: Dict[str, int], n: int,
     return out
 
 
-def streams(seed: int) -> Dict[str, random.Random]:
-    """The run's independent random streams, each from ``seed``."""
-    return {name: random.Random(f"{seed}:{name}")
-            for name in ("warmup", "timed", "sample")}
+def queries(made, traffic: dict, n: int, rng: random.Random) -> List[Spec]:
+    """``n`` queries over ``made.titles`` in the proportions of the
+    traffic file's ``kinds``."""
+    return [Spec(q) for q in make_queries(made.titles, traffic["kinds"], n,
+                                          rng)]

@@ -5,20 +5,24 @@
         --trace <0|1>
 
 From the root of a checkout. The cell names a configuration
-(``benchmark/configs/<name>.json``: the corpus recipe and the engine's
-guarantees) and a traffic mix (``benchmark/traffic/<name>.json``, whose
-``entry`` names the module of ``benchmark/entries/`` that drives the
-program). Set-up makes the corpus and the queries from ``--seed``, builds
-the index with ``SearchEngine.create_default()`` and warms up; the window
-then measures for ``--seconds``. With ``--trace 1`` the window runs under
-torch.profiler and the benchmark's own wrappers, and the line carries the
-cell's per-layer metrics (readers in ``benchmark/metrics/<name>.py``)
-instead of its end-to-end ones (the card's memory peak and set-up; the
-window's own rates and latencies are host-clock readings that spread
-with the host's speed, so they are per-layer metrics). After the window a sample of the answers,
-drawn from the seed, is served again with the candidates read, and
-compared with the plain reference (``benchmark/reference/``) on the CPU
-(``check.py``).
+(``benchmark/configs/<name>.json``: the deployment's recipe and
+guarantees, and in ``deployment_module`` the module of
+``benchmark/deployments/`` that makes its documents, builds its engine
+and names its reference) and a traffic mix
+(``benchmark/traffic/<name>.json``, whose ``entry`` names the module of
+``benchmark/entries/`` that drives the program and whose ``generator``
+the module of ``benchmark/generators/`` that draws its queries). Set-up
+makes the documents and the queries from ``--seed``, builds the engine
+and warms up; the window then measures for ``--seconds``. With
+``--trace 1`` the window runs under torch.profiler and the benchmark's
+own wrappers, and the line carries the cell's per-layer metrics (readers
+in ``benchmark/metrics/<name>.py``) instead of its end-to-end ones (the
+card's memory peak and set-up; the window's own rates and latencies are
+host-clock readings that spread with the host's speed, so they are
+per-layer metrics). After the window a sample of the answers, drawn
+from the seed, is served again with the candidates read, and
+compared with the deployment's plain reference (under
+``benchmark/reference/``) on the CPU (``check.py``).
 
 Prints the compared numbers beside their limits as the last lines of
 standard error and one JSON object as the last line of standard output.
@@ -49,9 +53,8 @@ if sys.path and os.path.abspath(sys.path[0] or ".") == HERE:
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-from benchmark import check, corpus, devtrace, queries  # noqa: E402
+from benchmark import check, devtrace, generators  # noqa: E402
 from benchmark.record import Record  # noqa: E402
-from benchmark.reference.stats import Corpus  # noqa: E402
 
 #: top-level module names no run may hold
 FORBIDDEN = ("jax", "jaxlib", "flax", "infidex_tpu")
@@ -69,21 +72,48 @@ def load_manifest(root: str = ROOT) -> dict:
         return json.load(f)
 
 
+#: the key of each data file that names its module, with its folder
+MODULE_KEYS = {"configs": ("deployment_module", "deployments"),
+               "traffic": ("generator", "generators")}
+
+
 def _data(kind: str, name: str) -> dict:
+    """``benchmark/<kind>/<name>.json``: a configuration or traffic mix."""
     with open(os.path.join(HERE, kind, f"{name}.json")) as f:
         return json.load(f)
 
 
+def _module(kind: str, name: str):
+    """``benchmark/<kind>/<name>.py``: a deployment, generator or entry."""
+    return importlib.import_module(f"benchmark.{kind}.{name}")
+
+
 def cell_of(manifest: dict, name: str) -> dict:
-    """The workload ``name`` with its configuration and traffic files."""
+    """The workload ``name`` with its configuration and traffic files;
+    each file has to name its module."""
     cells = {w["name"]: w for w in manifest["workloads"]}
     if name not in cells:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json; "
                          f"known: {sorted(cells)}")
     cell = dict(cells[name])
-    cell["config_data"] = _data("configs", cell["config"])
-    cell["traffic_data"] = _data("traffic", cell["traffic"])
+    for kind, key in (("configs", "config"), ("traffic", "traffic")):
+        data = _data(kind, cell[key])
+        need, folder = MODULE_KEYS[kind]
+        if need not in data:
+            raise SystemExit(f"benchmark/{kind}/{cell[key]}.json has no "
+                             f"{need!r} key: it names the module "
+                             f"benchmark/{folder}/<name>.py")
+        cell[f"{key}_data"] = data
     return cell
+
+
+def _merge(into: dict, over: dict) -> None:
+    """``over``'s entries written into ``into``, nested objects merged."""
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(into.get(k), dict):
+            _merge(into[k], v)
+        else:
+            into[k] = v
 
 
 def applies(metric: dict, cell: str, manifest: dict) -> bool:
@@ -139,13 +169,17 @@ def set_up(manifest: dict, name: str, seed: int, device: str = "cuda",
            shrink: dict = None, warm: bool = True):
     """The program built and (with ``warm``) warmed up for cell ``name``:
     returns (ctx, entry module). ``shrink`` (tests only) overrides entries
-    of the configuration's ``corpus`` and of the traffic file."""
+    of the configuration (``shrink["config"]``, merged into it) and of
+    the traffic file (``shrink["traffic"]``)."""
     cell = cell_of(manifest, name)
     config = copy.deepcopy(cell["config_data"])
     traffic = copy.deepcopy(cell["traffic_data"])
     if shrink:
-        config["corpus"].update(shrink.get("corpus", {}))
+        _merge(config, shrink.get("config", {}))
         traffic.update(shrink.get("traffic", {}))
+    dep = _module("deployments", config["deployment_module"])
+    gen = _module("generators", traffic["generator"])
+    entry = _module("entries", traffic["entry"])
     for var, rel in CACHES.items():
         os.environ[var] = os.path.join(ROOT, rel)
 
@@ -162,17 +196,17 @@ def set_up(manifest: dict, name: str, seed: int, device: str = "cuda",
         _kernels.build()
     log(f"[setup] kernels ready in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    titles, _ = corpus.make_titles(config["corpus"], seed)
-    log(f"[setup] {len(titles)} titles in {time.perf_counter() - t:.1f} s")
+    made = dep.documents(config, seed)
+    log(f"[setup] documents ({config['deployment_module']}) in "
+        f"{time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    eng = it.SearchEngine.create_default()
-    eng.index_documents([it.Document(i, x) for i, x in enumerate(titles)])
+    eng = dep.engine(it, made, config)
     if cuda:
         torch.cuda.synchronize()
     log(f"[setup] indexed in {time.perf_counter() - t:.1f} s")
-    entry = importlib.import_module(f"benchmark.entries.{traffic['entry']}")
-    ctx = SimpleNamespace(it=it, eng=eng, traffic=traffic, titles=titles,
-                          rngs=queries.streams(seed), torch=torch, cuda=cuda)
+    ctx = SimpleNamespace(it=it, eng=eng, traffic=traffic, made=made,
+                          dep=dep, gen=gen, rngs=generators.streams(seed),
+                          torch=torch, cuda=cuda)
     if not warm:
         return ctx, entry
     t = time.perf_counter()
@@ -196,7 +230,7 @@ def run_cell(manifest: dict, name: str, seed: int, seconds: float,
     if tamper is not None:
         tamper(ctx)
     torch, cuda = ctx.torch, ctx.cuda
-    eng, traffic, titles = ctx.eng, ctx.traffic, ctx.titles
+    eng, traffic = ctx.eng, ctx.traffic
 
     rec = Record()
     wanted = [m for m in manifest["per_layer" if trace else "end_to_end"]
@@ -254,28 +288,37 @@ def run_cell(manifest: dict, name: str, seed: int, seconds: float,
         result["breakdown"] = devtrace.breakdown(rec)
 
     # correctness: a sample of the window's answers against the reference
-    k = min(traffic["check_sample"], len(out["texts"]))
-    sample = sorted(ctx.rngs["sample"].sample(range(len(out["texts"])), k))
-    texts = [out["texts"][i] for i in sample]
-    got = [check.answer_of(out["answers"][i]) for i in sample]
-    failed = out["failed"]
+    specs, top = out["specs"], traffic["top"]
+    drawn, sample = check.draw_sample(ctx.rngs["sample"], specs,
+                                      out["calls"], traffic["check_sample"])
+    calls = [out["calls"][c] for c in drawn]
+    got = {i: check.answer_of(out["answers"][i]) for i in sample}
+    failed, k = out["failed"], len(sample)
     t = time.perf_counter()
-    cap = check.Capture(eng._pipeline, traffic["top"])
-    try:
-        replayed = [check.answer_of(r) for r in entry.replay(ctx, texts)]
-    finally:
-        cap.restore()
+    replays = check.replay_calls(lambda s: entry.replay(ctx, s),
+                                 eng._pipeline, specs, calls, top)
     t_replay = time.perf_counter() - t
     del ctx.eng, eng, out
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    ref = Corpus(titles)
-    numbers = check.judge(ref, texts, got, replayed, cap.state,
-                          traffic["top"], log=log)
-    log(f"[reference] {len(texts)} queries: replay {t_replay:.1f} s, "
-        f"reference {time.perf_counter() - t:.1f} s")
+    dep = ctx.dep
+    ref = dep.reference(ctx.made)
+    numbers = []
+    groups = check.rounds([st for _, st in replays])
+    for members, state in groups:
+        idx = [(i, p) for p in members for i in sample
+               if calls[p][0] <= i < calls[p][1]]
+        numbers.append(dep.judge(
+            ref, [specs[i] for i, _ in idx], [got[i] for i, _ in idx],
+            [replays[p][0][i - calls[p][0]] for i, p in idx], state, top,
+            log=log))
+    numbers = check.total(numbers)
+    log(f"[reference] {k} queries of {len(calls)} calls "
+        f"({sum(h - lo for lo, h in calls)} queries served again), "
+        f"{len(groups)} round(s): replay {t_replay:.1f} s, reference "
+        f"{time.perf_counter() - t:.1f} s")
     result["correct"] = bool(k and not failed and check.passed(numbers))
     result["checks"] = {n: {"value": v["value"], "limit": v["limit"]}
                         for n, v in numbers.items()}

@@ -3,7 +3,7 @@
 import torch
 
 #: a corpus of a few thousand titles and short windows
-SHRINK = {"corpus": {"titles": 3000, "vocab_words": 2000},
+SHRINK = {"config": {"corpus": {"titles": 3000, "vocab_words": 2000}},
           "traffic": {"batch_size": 16, "call_batches": 1,
                       "warmup_calls": 1, "warmup_searches": 4,
                       "check_sample": 6}}

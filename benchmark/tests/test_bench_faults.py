@@ -7,7 +7,8 @@ import pytest
 from benchmark import control, run
 from helpers import SHRINK, cpu_run
 
-CELLS = ["movies1m.batch-mixed", "movies1m.single-mixed"]
+CELLS = ["movies1m.batch-mixed", "movies1m.batch-exact",
+         "movies1m.single-mixed"]
 
 
 def _wrap(ctx, attr, change):

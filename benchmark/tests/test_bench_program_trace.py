@@ -17,6 +17,9 @@ NEW = {"movies1m.batch-mixed": ["coverage_begin_ms.batch",
                                 "prefetch_wait_ms.batch",
                                 "conj_memo_hit_share.batch",
                                 "index_build_s"],
+       "movies1m.batch-exact": ["coverage_begin_ms.batch",
+                                "prefetch_wait_ms.batch",
+                                "index_build_s"],
        "movies1m.single-mixed": ["host_stage1_ms.single",
                                  "coverage_begin_ms.single",
                                  "coverage_host_ms.single",

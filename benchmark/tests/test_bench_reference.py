@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, corpus, queries, run
+from benchmark import check, corpus, generators, run
+from benchmark.generators import upstream as queries
 from benchmark.reference import answers, score
 from benchmark.reference.stage1 import Stage1Index, is_top, ld1
 from benchmark.reference.stats import Corpus
@@ -24,7 +25,7 @@ def test_reference_equals_port_on_cpu(cell):
     titles, _ = corpus.make_titles(spec, 2**31 + 5)
     tr = dict(c["traffic_data"], batch_size=32)
     texts = queries.make_queries(titles, tr["kinds"], 64,
-                                 queries.streams(11)["timed"])
+                                 generators.streams(11)["timed"])
     runtime.set_device("cpu")
     eng = it.SearchEngine.create_default()
     eng.index_documents([it.Document(i, t) for i, t in enumerate(titles)])
