@@ -20,6 +20,7 @@ from .core.config import ConfigurationParameters, WordMatcherSetup, get_config
 from .core.documents import Document
 from .coverage.engine import CoverageEngine
 from .coverage.setup import CoverageSetup
+from .filtering.columnar import mask_key
 from .index.short_query import PositionalPrefixIndex, ShortQueryResolver
 from .index.vector_model import ScoreEntry, VectorModel
 from .index.word_matcher import WordMatcher
@@ -451,6 +452,8 @@ class SearchEngine:
             deadline = (t_start + q.time_out_limit_milliseconds / 1000.0
                         if q.timeout_enforced else None)
             status: Dict[str, bool] = {}
+            key = mask_key(q.filter)
+            mask = self._prefilter_mask(q.filter, key)
             results = self._pipeline.execute(
                 q.text,
                 (q.coverage_setup or self._coverage_setup) if q.enable_coverage else None,
@@ -458,10 +461,10 @@ class SearchEngine:
                 q.max_number_of_records_to_return,
                 deadline=deadline,
                 status=status,
-                prefilter_mask=self._prefilter_mask(q.filter),
+                prefilter_mask=mask,
             )
             with tracing.span("engine.post_process"):
-                results = self._apply_post_processing(results, q)
+                results = self._apply_post_processing(results, q, key, mask)
 
             facets = None
             if q.enable_facets:
@@ -551,22 +554,28 @@ class SearchEngine:
         with self._rw_lock.read_lock():
             if not self._servable():
                 return [Result.make_empty() for _ in queries]
-            prepped, direct, statuses = self._prep_batch_queries(queries)
+            prepped, direct, statuses, keys = self._prep_batch_queries(
+                queries)
             results_by_query: Dict[int, List[ScoreEntry]] = {}
-            for (_, depth, max_records, _fid), idxs in self._group_by_params(
-                    prepped, direct).items():
+            masks: List = [None] * len(prepped)
+            groups = self._group_by_params(prepped, direct, keys)
+            tracing.count("engine.pipeline_batches", len(groups))
+            for (_, depth, max_records, key), idxs in groups.items():
                 q0 = prepped[idxs[0]]
                 setup = (q0.coverage_setup or self._coverage_setup) \
                     if q0.enable_coverage else None
+                pf = self._prefilter_mask(q0.filter, key)
                 batch_out = self._pipeline.execute_batch(
                     [prepped[i].text for i in idxs], setup, depth, max_records,
                     deadlines=self._batch_deadlines(prepped, idxs, t_start),
                     statuses=[statuses[i] for i in idxs],
-                    prefilter_mask=self._prefilter_mask(q0.filter))
+                    prefilter_mask=pf)
                 for i, res in zip(idxs, batch_out):
                     results_by_query[i] = res
+                    masks[i] = pf
             return self._finalize_batch_results(
-                prepped, direct, statuses, results_by_query, t_start)
+                prepped, direct, statuses, keys, masks, results_by_query,
+                t_start)
 
     def serving_split(self, reset: bool = True) -> dict:
         """Cumulative host/device serving split since the last reset:
@@ -619,15 +628,19 @@ class SearchEngine:
         with self._rw_lock.read_lock():
             if not self._servable():
                 return [Result.make_empty() for _ in queries]
-            prepped, direct, statuses = self._prep_batch_queries(queries)
+            prepped, direct, statuses, keys = self._prep_batch_queries(
+                queries)
             specs: List[dict] = []
             spec_idxs: List[List[int]] = []
-            for (_, depth, max_records, _fid), idxs in self._group_by_params(
-                    prepped, direct).items():
+            masks: List = [None] * len(prepped)
+            for (_, depth, max_records, key), idxs in self._group_by_params(
+                    prepped, direct, keys).items():
                 q0 = prepped[idxs[0]]
                 setup = (q0.coverage_setup or self._coverage_setup) \
                     if q0.enable_coverage else None
-                pf = self._prefilter_mask(q0.filter)
+                pf = self._prefilter_mask(q0.filter, key)
+                for i in idxs:
+                    masks[i] = pf
                 for lo in range(0, len(idxs), batch_size):
                     sub = idxs[lo:lo + batch_size]
                     specs.append(dict(
@@ -639,6 +652,7 @@ class SearchEngine:
                         statuses=[statuses[i] for i in sub],
                         prefilter_mask=pf))
                     spec_idxs.append(sub)
+            tracing.count("engine.pipeline_batches", len(specs))
             results_by_query: Dict[int, List[ScoreEntry]] = {}
             for sub, batch_out in zip(spec_idxs,
                                       self._pipeline.execute_batches_pipelined(
@@ -646,11 +660,13 @@ class SearchEngine:
                 for i, res in zip(sub, batch_out):
                     results_by_query[i] = res
             return self._finalize_batch_results(
-                prepped, direct, statuses, results_by_query, t_start)
+                prepped, direct, statuses, keys, masks, results_by_query,
+                t_start)
 
     def _prep_batch_queries(self, queries: List[Query]):
         """Shared search_batch/search_many query prep: normalize text,
-        canonicalize synonyms, clamp timeouts, answer empty queries."""
+        canonicalize synonyms, clamp timeouts, answer empty queries, and
+        key each query's filter once (``mask_key``)."""
         prepped: List[Query] = []
         direct: Dict[int, Result] = {}
         for i, query in enumerate(queries):
@@ -671,12 +687,16 @@ class SearchEngine:
                              if q.enable_facets else Result.make_empty())
             prepped.append(q)
         statuses: List[Dict[str, bool]] = [{} for _ in prepped]
-        return prepped, direct, statuses
+        keys = [mask_key(q.filter) for q in prepped]
+        return prepped, direct, statuses, keys
 
     def _group_by_params(self, prepped: List[Query],
-                         direct: Dict[int, Result]) -> Dict[tuple, List[int]]:
+                         direct: Dict[int, Result],
+                         keys: List) -> Dict[tuple, List[int]]:
         """Group queries by identical pipeline parameters; each group is
-        one batched pipeline run (parameters are almost always uniform)."""
+        one batched pipeline run. Filters group by ``keys`` (their
+        ``mask_key``s): by meaning, so that a stream whose requests parse
+        their filters afresh still batches."""
         groups: Dict[tuple, List[int]] = {}
         for i, q in enumerate(prepped):
             if i in direct:
@@ -684,7 +704,7 @@ class SearchEngine:
             setup = (q.coverage_setup or self._coverage_setup) \
                 if q.enable_coverage else None
             key = (id(setup), q.coverage_depth,
-                   q.max_number_of_records_to_return, id(q.filter))
+                   q.max_number_of_records_to_return, keys[i])
             groups.setdefault(key, []).append(i)
         return groups
 
@@ -699,6 +719,7 @@ class SearchEngine:
     def _finalize_batch_results(self, prepped: List[Query],
                                 direct: Dict[int, Result],
                                 statuses: List[Dict[str, bool]],
+                                keys: List, masks: List,
                                 results_by_query: Dict[int, List[ScoreEntry]],
                                 t_start: float) -> List[Result]:
         import time as _time
@@ -706,7 +727,8 @@ class SearchEngine:
         out: List[Result] = []
         with tracing.span("engine.post_process"):
             processed: Dict[int, List[ScoreEntry]] = {
-                i: self._apply_post_processing(results_by_query[i], q)
+                i: self._apply_post_processing(results_by_query[i], q,
+                                               keys[i], masks[i])
                 for i, q in enumerate(prepped) if i not in direct}
         # Facets for the WHOLE batch in one pass per field: the counts
         # matrix is a single device segment-sum (ops/facets.py) or a host
@@ -771,7 +793,11 @@ class SearchEngine:
                       truncation_index=len(top) - 1 if top else 0,
                       truncation_score=top[-1].score if top else 0.0)
 
-    def _apply_post_processing(self, results: List[ScoreEntry], q: Query) -> List[ScoreEntry]:
+    def _apply_post_processing(self, results: List[ScoreEntry], q: Query,
+                               key, mask) -> List[ScoreEntry]:
+        """Filter, boost, sort; ``key``: the filter's ``mask_key``;
+        ``mask``: its pre-filter mask, where the query had one (the
+        post-filter then reads it again rather than look it up)."""
         needs_store = (q.filter is not None
                        or (q.enable_boost and bool(q.boosts)))
         processor = ResultProcessor(
@@ -783,7 +809,8 @@ class SearchEngine:
             results = processor.apply_filter(
                 results, q.filter, precompiled=deserialize(q.compiled_filter_bytecode))
         elif q.filter is not None:
-            results = processor.apply_filter(results, q.filter)
+            results = processor.apply_filter(results, q.filter, key=key,
+                                             mask=mask)
         if q.enable_boost and q.boosts:
             results = processor.apply_boosts(results, q.boosts)
         if q.sort_by is not None:
@@ -838,7 +865,7 @@ class SearchEngine:
         self._pipeline.invalidate_caches()
         self._column_store = None
 
-    def _prefilter_mask(self, filt):
+    def _prefilter_mask(self, filt, key):
         """Dense doc mask for PRE-filtering: selective filters intersect
         into Stage-1 scoring (scores of non-matching docs zero before the
         device top-k) instead of post-filtering the 500 covered candidates
@@ -846,7 +873,9 @@ class SearchEngine:
         Post-filter semantics (ResultProcessor.cs:35-70) still run on the
         output (idempotent here) and remain the ONLY filter for
         DerivedFilter and sharded serving. Disable with
-        INFIDEX_TPU_PREFILTER=0."""
+        INFIDEX_TPU_PREFILTER=0. The mask is kept under ``key`` (the
+        filter's ``mask_key``), so equal filters get one mask object back
+        and ``DeviceIndex.masked_live`` uploads it once."""
         if filt is None:
             return None
         import os as _os
@@ -861,21 +890,12 @@ class SearchEngine:
 
         if contains_derived(filt):
             return None
-        try:
-            store = self._get_column_store()
-            cache = getattr(store, "_prefilter_masks", None)
-            if cache is None:
-                cache = store._prefilter_masks = {}
-            hit = cache.get(id(filt))
-            if hit is not None and hit[0] is filt:
-                mask = hit[1]
-            else:
-                mask = store.evaluate(filt)
-                if len(cache) >= 64:
-                    cache.clear()
-                cache[id(filt)] = (filt, mask)
-        except Exception:
-            return None   # unsupported columnar shape: post-filter only
+        with tracing.span("engine.prefilter"):
+            try:
+                mask, hit = self._get_column_store().cached_mask(filt, key)
+            except Exception:
+                return None   # unsupported columnar shape: post-filter only
+            tracing.count("prefilter.hit" if hit else "prefilter.miss")
         if mask is None or mask.size < self._vector_model.doc_keys_arr.size:
             return None
         return mask
@@ -890,29 +910,30 @@ class SearchEngine:
         the whole batch when it amortizes a dispatch, host bincounts
         otherwise — instead of the reference's per-document host walk.
         """
-        schema = self._document_field_schema
-        facetable = schema.get_facetable_field_list() if schema else []
-        if not facetable:
-            return [{} for _ in results_lists]
-        import numpy as _np
+        with tracing.span("engine.facets"):
+            schema = self._document_field_schema
+            facetable = schema.get_facetable_field_list() if schema else []
+            if not facetable:
+                return [{} for _ in results_lists]
+            import numpy as _np
 
-        docs = self._vector_model.documents
-        store = self._get_column_store()
-        id_lists = []
-        for results in results_lists:
-            ids = [docs.first_live_id(e.document_id) for e in results]
-            id_lists.append(_np.asarray(
-                [i for i in ids if i is not None], dtype=_np.int64))
-        ctr = self._facet_device_counter(store)
-        out = [dict() for _ in results_lists]
-        for field in facetable:
-            pairs_per_q = store.facet_pairs_batch(
-                field.name, id_lists, is_array=field.is_array,
-                device_counter=ctr)
-            for i, pairs in enumerate(pairs_per_q):
-                if pairs:
-                    out[i][field.name] = pairs
-        return out
+            docs = self._vector_model.documents
+            store = self._get_column_store()
+            id_lists = []
+            for results in results_lists:
+                ids = [docs.first_live_id(e.document_id) for e in results]
+                id_lists.append(_np.asarray(
+                    [i for i in ids if i is not None], dtype=_np.int64))
+            ctr = self._facet_device_counter(store)
+            out = [dict() for _ in results_lists]
+            for field in facetable:
+                pairs_per_q = store.facet_pairs_batch(
+                    field.name, id_lists, is_array=field.is_array,
+                    device_counter=ctr)
+                for i, pairs in enumerate(pairs_per_q):
+                    if pairs:
+                        out[i][field.name] = pairs
+            return out
 
     def _facet_device_counter(self, store):
         """DeviceFacetCounter tied to this ColumnStore (rebuilt stores

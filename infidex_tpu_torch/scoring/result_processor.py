@@ -33,34 +33,22 @@ class ResultProcessor:
         # all docs instead of a per-document VM run.
         self._column_store = column_store
 
-    def _columnar_mask(self, flt):
+    def _columnar_mask(self, flt, key=None):
         """Dense bool mask for *flt*, or None if the VM path must be used.
 
-        Cached per filter identity on the ColumnStore (the same cache the
-        facade's pre-filter uses; the store is replaced wholesale on
-        reindex, taking the cache with it): evaluating the mask costs two
-        full-corpus gathers per condition (~16ms/query at 1M docs — it
-        was the whole config-4 host bottleneck, 1.1s per 64-batch), while
-        serving streams repeat a handful of filter objects
-        (Filtering/FilterCache.cs is the reference's same trade)."""
+        Kept on the ColumnStore under ``key`` (``mask_key(flt)`` unless
+        given: the same cache the facade's pre-filter uses, so filters
+        parsed apart from one text share one evaluation; the store is
+        replaced wholesale on reindex, taking the cache with it)."""
         if self._column_store is None or flt is None:
             return None
-        from ..filtering.columnar import contains_derived
+        from ..filtering.columnar import contains_derived, mask_key
 
         if contains_derived(flt):
             return None
-        store = self._column_store
-        cache = getattr(store, "_prefilter_masks", None)
-        if cache is None:
-            cache = store._prefilter_masks = {}
-        hit = cache.get(id(flt))
-        if hit is not None and hit[0] is flt:
-            return hit[1]
-        mask = store.evaluate(flt)
-        if len(cache) >= 64:
-            cache.clear()
-        cache[id(flt)] = (flt, mask)
-        return mask
+        if key is None:
+            key = mask_key(flt)
+        return self._column_store.cached_mask(flt, key)[0]
 
     def _compile(self, flt):
         compiled = self._cache.get(flt)
@@ -78,10 +66,14 @@ class ResultProcessor:
         return compiled
 
     def apply_filter(self, results: List[ScoreEntry], flt,
-                     precompiled=None) -> List[ScoreEntry]:
+                     precompiled=None, key=None,
+                     mask=None) -> List[ScoreEntry]:
+        """The results *flt* passes; ``key``: its ``mask_key``, and
+        ``mask``: its columnar mask, where the caller has them."""
         from ..filtering.vm import FilterVM
 
-        mask = self._columnar_mask(flt)
+        if mask is None:
+            mask = self._columnar_mask(flt, key)
         if mask is not None:
             if getattr(flt, "number_of_documents_in_filter", None) == 0:
                 live = self._column_store.live_doc_ids
